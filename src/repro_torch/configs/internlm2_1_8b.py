@@ -1,0 +1,21 @@
+"""internlm2-1.8b — 24L d_model=2048 16H (GQA kv=8) d_ff=8192 vocab=92544.
+[arXiv:2403.17297; hf]
+
+Port of ``repro/configs/internlm2_1_8b.py`` (a copy: the port imports nothing of
+``repro``).
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    n_layers=24,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab=92544,
+    rope_theta=1e6,
+)

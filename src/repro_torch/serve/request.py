@@ -1,0 +1,135 @@
+"""Request lifecycle for the continuous-batching engine.
+
+A :class:`Request` is the unit the scheduler prices and the batcher
+places: it arrives (``QUEUED``), is admitted against the cost model
+(``ADMITTED``), prefills into a free decode slot (``RUNNING``), and
+leaves the batch on EOS / token budget (``FINISHED``) or is bounced by
+the scheduler (``REFUSED``).  Timing fields are wall-clock marks the
+bench turns into TTFT / per-token latency percentiles.
+
+Fault tolerance (docs/serve.md "Failure semantics") adds two states:
+
+* ``PREEMPTED`` — evicted from its slot under KV-pool pressure with
+  generated tokens retained; it re-queues at the head and resumes by
+  re-prefilling over prompt + generated tokens.  Not terminal.
+* ``EXPIRED`` — terminal: the deadline/watchdog shed it (``expiry``
+  says why).  Every admitted request ends FINISHED, REFUSED, or
+  EXPIRED — the engine's zero-lost accounting contract.
+
+Port of ``repro/serve/request.py`` (numpy only, unchanged).
+"""
+
+from __future__ import annotations
+
+import enum
+import itertools
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+
+__all__ = ["Request", "RequestState", "TERMINAL_STATES"]
+
+
+class RequestState(enum.Enum):
+    QUEUED = "queued"
+    ADMITTED = "admitted"
+    RUNNING = "running"
+    PREEMPTED = "preempted"
+    FINISHED = "finished"
+    REFUSED = "refused"
+    EXPIRED = "expired"
+
+
+#: States a request never leaves (the zero-lost accounting set).
+TERMINAL_STATES = frozenset(
+    {RequestState.FINISHED, RequestState.REFUSED, RequestState.EXPIRED})
+
+
+_ids = itertools.count()
+
+
+@dataclass(eq=False)      # identity equality: prompt arrays don't compare
+class Request:
+    prompt: np.ndarray                  # (S,) int32 token ids
+    max_new_tokens: int = 32
+    slo_ms: float | None = None         # per-token latency SLO (None = none)
+    deadline_ms: float | None = None    # end-to-end TTL from arrival (None = none)
+    rid: int = field(default_factory=lambda: next(_ids))
+    state: RequestState = RequestState.QUEUED
+
+    # filled in by the engine
+    slot: int | None = None
+    blocks: list[int] = field(default_factory=list)   # physical KV blocks
+    tokens: list[int] = field(default_factory=list)   # generated ids
+    estimate: "object | None" = None                  # CostEstimate at admit
+    refusal: "object | None" = None                   # PlacementRefused
+    expiry: str | None = None                         # why EXPIRED, if it did
+    admit_seq: int | None = None        # first-admission order (preempt age)
+    prefill_pos: int = 0                # tokens prefilled so far (chunked)
+    preemptions: int = 0                # times evicted under pool pressure
+    defer_retries: int = 0              # DEFER backoff attempts so far
+    retry_at_step: int = 0              # engine step before which not re-priced
+
+    # wall-clock marks (seconds, time.perf_counter domain)
+    t_arrival: float = field(default_factory=time.perf_counter)
+    t_first_token: float | None = None
+    t_finished: float | None = None
+    # engine-step marks — the deterministic (noise-free) TTFT the serve
+    # bench gates on: step_first_token - step_submitted
+    step_submitted: int | None = None
+    step_first_token: int | None = None
+
+    def __post_init__(self):
+        self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
+        if not len(self.prompt):
+            raise ValueError("empty prompt")
+
+    # ------------------------------------------------------------------
+
+    @property
+    def prompt_len(self) -> int:
+        return int(len(self.prompt))
+
+    @property
+    def terminal(self) -> bool:
+        return self.state in TERMINAL_STATES
+
+    @property
+    def t_deadline(self) -> float | None:
+        """Absolute deadline (arrival clock domain), or None."""
+        if self.deadline_ms is None:
+            return None
+        return self.t_arrival + self.deadline_ms / 1e3
+
+    def sequence(self) -> np.ndarray:
+        """Prompt plus every generated token — what a preempted request
+        re-prefills over on resume (recompute-on-resume)."""
+        if not self.tokens:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.tokens, np.int32)])
+
+    @property
+    def n_generated(self) -> int:
+        return len(self.tokens)
+
+    @property
+    def ttft_s(self) -> float | None:
+        """Time to first token (prefill wait + queueing)."""
+        if self.t_first_token is None:
+            return None
+        return self.t_first_token - self.t_arrival
+
+    @property
+    def tpot_s(self) -> float | None:
+        """Mean per-output-token latency after the first token."""
+        if self.t_finished is None or self.n_generated < 2:
+            return None
+        return (self.t_finished - self.t_first_token) / (self.n_generated - 1)
+
+    def output(self, eos_id: int) -> np.ndarray:
+        """Generated ids trimmed at (and excluding) the first EOS."""
+        out = np.asarray(self.tokens, np.int32)
+        hits = np.flatnonzero(out == eos_id)
+        return out[: hits[0]] if len(hits) else out
