@@ -1,6 +1,12 @@
 """Carry parameters between the reference's numpy tree and the port's
 modules (no counterpart in ``repro``).
 
+CNN parameters (``repro.models.cnn.CNNModel.init``, which the port's
+``CNNModel.init`` draws identically) are a nested dict of numpy arrays
+with HWIO conv weights; the port's ``apply`` takes the same dict with
+tensor leaves, so :func:`cnn_params_from_numpy` and
+:func:`cnn_params_to_numpy` copy leaf by leaf and keep the layout.
+
 ``repro.models.transformer.init_params`` returns a nested dict of numpy
 arrays whose block leaves are stacked on a leading ``(n_layers, …)`` axis;
 the port keeps one :class:`~repro_torch.models.transformer.Block` per
@@ -16,9 +22,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.transformer import LM, param_leaves, param_of
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "cnn_params_from_numpy",
+           "cnn_params_to_numpy", "tree_map", "tree_leaves"]
 
 
 def _get(tree, path):
@@ -61,3 +69,35 @@ def params_to_numpy(model: LM, cfg: ArchConfig) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = leaf
     return tree
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts (in sorted-key order, as JAX flattens
+    them, so two dicts with the same keys line up whatever order their
+    keys were inserted in), lists and tuples."""
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def cnn_params_from_numpy(tree: dict, *, device="cuda") -> dict:
+    """A CNN parameter dict with numpy leaves → the same dict with float32
+    tensor leaves on ``device`` (copies; the numpy arrays are not shared)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32), device=dev), tree)
+
+
+def cnn_params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`cnn_params_from_numpy`: float32 numpy leaves."""
+    return tree_map(lambda t: t.detach().float().cpu().numpy(), params)

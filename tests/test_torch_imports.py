@@ -56,13 +56,21 @@ def test_no_source_imports_jax_or_repro(path):
 
 def _entry_points():
     from repro_torch.configs.registry import get_config
-    from repro_torch.convert import params_from_jax
+    from repro_torch.convert import cnn_params_from_numpy, params_from_jax
+    from repro_torch.core.dataset import GridSpec, collect_grid
+    from repro_torch.core.profiler import profile_inference, profile_training
     from repro_torch.models import transformer as T
+    from repro_torch.models.cnn import build_squeezenet
     from repro_torch.serve import ContinuousEngine, ServeEngine
 
     cfg = get_config("qwen3-4b", reduced=True)
     params = T.init_params(cfg, 0, device="cpu")
+    cnn = build_squeezenet(width_mult=0.125, input_hw=16)
     return {
+        "profile_training": lambda: profile_training(cnn, 2),
+        "profile_inference": lambda: profile_inference(cnn, 2),
+        "collect_grid": lambda: collect_grid(GridSpec("squeezenet", (0.0,))),
+        "cnn_params_from_numpy": lambda: cnn_params_from_numpy(cnn.init(0)),
         "ContinuousEngine": lambda: ContinuousEngine(cfg, params),
         "ServeEngine": lambda: ServeEngine(cfg, params),
         "init_params": lambda: T.init_params(cfg, 0),
@@ -74,7 +82,9 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["ContinuousEngine", "ServeEngine",
                                   "init_params", "init_cache",
-                                  "init_paged_cache", "params_from_jax"])
+                                  "init_paged_cache", "params_from_jax",
+                                  "profile_training", "profile_inference",
+                                  "collect_grid", "cnn_params_from_numpy"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     call = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -95,3 +105,16 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         paged_decode_cuda(q, pool, pool, bt, cl)
     assert paged_decode_cuda.launches == 0
+
+
+def test_conv_mm_kernel_refuses_cpu_tensors():
+    """As above for the convolution kernel: ``ops.conv_mm`` sends CPU
+    tensors to the plain version; the CUDA wrapper itself raises and does
+    not count a launch."""
+    from repro_torch.kernels.conv_mm.kernel import conv_mm_cuda
+
+    x = torch.zeros(1, 8, 8, 4)
+    w = torch.zeros(3, 3, 4, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        conv_mm_cuda(x, w, stride=1, padding=1)
+    assert conv_mm_cuda.launches == 0
