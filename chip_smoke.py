@@ -9,18 +9,31 @@ Phases (any failure raises and the script exits non-zero):
    CUDA versions;
 2. build — compile every CUDA kernel from the sources in this checkout,
    one ``nvcc`` per kernel, all started together (→ ``build/repro_torch/``);
-3. kernels — hold each kernel against its plain PyTorch version on the
+3. tune — the kernel autotuner on the card: a ``KernelTuner`` for this
+   card (``from_torch_device``, ``measure=True``) on a fresh cache
+   installed as the process default; ``warm_autotune`` for full-width
+   qwen3-4b (batch 8, 2048 tokens, prefill and decode) times the flash
+   attention kernel through its tiling runner, ``tune("ssm_scan")`` times
+   the SSD kernel at mamba2-780m's shape, and paged decode is tuned at
+   every table width the served decode step uses; every ``explain()``
+   entry is printed, and each kernel's launches during the phase must
+   equal four per timed config (one warm call, three timed);
+4. kernels — hold each kernel against its plain PyTorch version on the
    card: paged decode at qwen3-4b decode shapes, the MM convolution on
-   every convolution shape of full-width ResNet-50 and on edge cases; time
-   kernel, plain version, a library yardstick and the bound with CUDA
-   events;
-4. serve — full-width qwen3-4b (random weights from seed 0, bf16) served
+   every convolution shape of full-width ResNet-50 and on edge cases,
+   flash attention at the qwen3-4b prefill shape and edge cases, the SSD
+   intra-chunk pass at the mamba2-780m shape for every chunk the tuner may
+   return; time kernel, plain version, a library yardstick and the bound
+   with CUDA events;
+5. serve — full-width qwen3-4b (random weights from seed 0, bf16) served
    by ``ContinuousEngine`` over the paged KV pool: 16 greedy requests,
    with the paged-decode launch count read around the run; then the
    kernel is held against its plain version on the served model's own
    inputs, and a reduced qwen3-4b on the card is held against the same
-   model on the CPU (the port's plain path);
-5. cnn — the paper's toolflow: one training step of a reduced ResNet-50
+   model on the CPU (the port's plain path); launches the tuner makes
+   inside this window (a prefill shape it has not seen) are counted
+   apart and printed;
+6. cnn — the paper's toolflow: one training step of a reduced ResNet-50
    on the card against the CPU; then full-width ResNet-50 (32x32,
    CIFAR-100) pruned, profiled for Γ and Φ over the paper's train levels
    and the default test levels at five batch sizes (``collect_grid``),
@@ -29,7 +42,7 @@ Phases (any failure raises and the script exits non-zero):
    convolution shape) the grid gave it; the predictor fitted on the
    train points and its Γ/Φ error printed for each test grid; and a
    traced step at batch 128 (where the time goes);
-6. a ``{"kernels": [...]}`` JSON line, the card line again, and last
+7. a ``{"kernels": [...]}`` JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it fails
@@ -63,6 +76,20 @@ DECODE = dict(B=8, H=32, Hkv=8, Dh=128, bs=256, NB=8)
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 REPLACES = "src/repro/kernels/paged_decode/kernel.py:120"
 CONV_REPLACES = "src/repro/kernels/conv_mm/kernel.py:57"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:66"
+SSD_REPLACES = "src/repro/kernels/ssm_scan/kernel.py:57"
+# flash attention against its plain version: bf16 outputs may round to
+# either neighbour of the same f32 value (one ulp at |o| < 2 is <= 2^-7);
+# f32 sums in another order stay far inside 1e-4
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# SSD intra-chunk pass and the whole op, f32 at mamba2-780m's shape: |y| is
+# O(10) and sums run over up to l·N products in another order
+SSD_TOL = 1e-3
+# the tune phase's shapes: full-width qwen3-4b at batch 8 over 2048 tokens,
+# and mamba2-780m's SSD layer (d_inner 3072 / head_dim 64 = 48 heads,
+# ssm_state 128) at 2048 tokens
+TUNE_BATCH, TUNE_SEQ = 8, 2048
+SSD_SHAPE = dict(B=1, S=2048, H=48, P=64, N=128)
 # conv_mm against its plain version: outputs of unit variance; f32 sums of
 # up to K = 4608 products in another order stay far inside 1e-4; bf16
 # outputs may round to either neighbour, one ulp <= 2^-7 |y| (+ atol)
@@ -109,6 +136,24 @@ def ptxas_summary(log: str) -> str:
             regs.append(int(line.split("Used")[1].split("registers")[0]))
     return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
             f"{sum(x > 0 for x in spills)} with spills (max {max(spills)} bytes)")
+
+
+def check_smem_formulas(flash_lib, ssd_lib) -> None:
+    """The shared-memory sizes the tiling models report (what the tuner
+    budgets) equal the ones the CUDA sources compute and launch with."""
+    from repro_torch.kernels.flash_attention import tiling as flash_tiling
+    from repro_torch.kernels.ssm_scan import tiling as ssm_tiling
+
+    for Dh in (32, 64, 128):
+        for bk in (1, 48, 64, 100, 128, 256, 512, 640, 1024):
+            if flash_lib.flash_attention_smem_bytes(Dh, bk) != flash_tiling.smem_bytes(Dh, bk):
+                raise AssertionError(f"flash smem formula differs at Dh={Dh} block_k={bk}")
+    for l in (16, 32, 64, 96, 128, 256):
+        for N, P in ((128, 64), (32, 32), (16, 8)):
+            if ssd_lib.ssd_chunk_smem_bytes(l, N, P) != ssm_tiling.smem_bytes(l, N, P):
+                raise AssertionError(f"ssd smem formula differs at l={l} N={N} P={P}")
+    print("build shared-memory formulas of flash_attention and ssd_chunk: the "
+          "CUDA sources and the tiling models agree")
 
 
 def decode_case(dtype, Dh, cache_lens, seed=0, H=None, Hkv=None):
@@ -188,28 +233,34 @@ def kernel_phase(flush) -> dict:
         if not err <= TOL["bfloat16"]:
             raise AssertionError(f"paged_decode disagrees: {err}")
 
-    # timing at the serving shape: bf16, tiling default, ragged fills
-    # drawn like the served requests (prompt 64..1536 + 16 generated)
+    # timing at the serving shape: bf16, ragged fills drawn like the served
+    # requests (prompt 64..1536 + 16 generated), at the n_splits the tune
+    # phase picked for this shape (what serving launches) and at 1, 2, 4, 8
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.paged_decode import tiling as pd_tiling
+
+    tuned_ns = autotune.get_tuner().tune("paged_decode", pd_tiling.shape_key(
+        DECODE["B"], DECODE["H"], DECODE["Hkv"], DECODE["Dh"], NB, bs,
+        "bfloat16"))["n_splits"]
     fills = np.random.default_rng(1).integers(64, 1537, DECODE["B"]) + 16
     args = decode_case(torch.bfloat16, DECODE["Dh"], fills.tolist(), seed=1)
     lib_err = float((library_decode(*args).float()
                      - paged_decode_ref(*args).float()).abs().max())
-    ms = time_ms(lambda: paged_decode_cuda(*args), flush)
+    ms = time_ms(lambda: paged_decode_cuda(*args, n_splits=tuned_ns), flush)
     plain_ms = time_ms(lambda: paged_decode_ref(*args), flush)
     library_ms = time_ms(lambda: library_decode(*args), flush)
-    ms_again = time_ms(lambda: paged_decode_cuda(*args), flush)
+    ms_again = time_ms(lambda: paged_decode_cuda(*args, n_splits=tuned_ns), flush)
     bound_ms, bound_by = bound(args[0], args[1], args[4])
     live = int((args[4].long() + 1).sum())
     print(f"timing paged_decode B=8 H=32 Hkv=8 Dh=128 bs=256 NB=8 bf16 "
-          f"live_tokens={live}: kernel {ms:.4f} / {ms_again:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, gather+sdpa {library_ms:.4f} ms "
+          f"live_tokens={live} at the tuned n_splits={tuned_ns}: kernel {ms:.4f} / "
+          f"{ms_again:.4f} ms, plain {plain_ms:.4f} ms, gather+sdpa {library_ms:.4f} ms "
           f"(max_abs_err vs plain {lib_err:.3e}), bound {bound_ms:.4f} ms "
           f"({bound_by}) -> {bound_ms / ms:.1%} of bound")
     splits = {ns: time_ms(lambda: paged_decode_cuda(*args, n_splits=ns), flush)
-              for ns in (2, 4, 8)}
-    print("timing paged_decode same inputs by n_splits: 1: "
-          f"{ms:.4f} ms, " + ", ".join(f"{ns}: {t:.4f} ms"
-                                       for ns, t in splits.items()))
+              for ns in (1, 2, 4, 8)}
+    print("timing paged_decode same inputs by n_splits: " + ", ".join(
+        f"{ns}: {t:.4f} ms" for ns, t in splits.items()))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -255,6 +306,7 @@ def serve_phase() -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.paged_decode_cuda = keep_last
     paged_decode_cuda.launches = 0
+    window = TunerWindow()
     t0 = time.perf_counter()
     try:
         engine.run(requests)
@@ -263,6 +315,7 @@ def serve_phase() -> dict:
         ops.paged_decode_cuda = launch
     wall = time.perf_counter() - t0
     launches = paged_decode_cuda.launches
+    window.report("serve")
     m = engine.metrics()
     n_layers = cfg.n_layers
     print(f"serve qwen3-4b n_slots=8 max_len=2048 prefill_chunk=512 "
@@ -330,6 +383,17 @@ def decode_breakdown(cfg, params, scfg, prompts, n_steps: int = 8) -> None:
         engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    # host cost of the n_splits lookup each layer makes (a tuner memo hit),
+    # as ops.paged_decode_attention makes it
+    from repro_torch.kernels.autotune import tuned_config
+    from repro_torch.kernels.paged_decode import tiling as pd_tiling
+
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        key = pd_tiling.shape_key(scfg.n_slots, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim_, 2, engine.kv.block_size, "bfloat16")
+        tuned_config("paged_decode", key, pd_tiling.default(key))
+    lookup_us = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             engine.step()
@@ -344,7 +408,9 @@ def decode_breakdown(cfg, params, scfg, prompts, n_steps: int = 8) -> None:
     print(f"decode step, 8 slots at ~256-280 tokens of context: host wall "
           f"{wall_ms:.2f} ms/step, device kernel time {dev_ms:.2f} ms/step "
           f"(device idle {1 - dev_ms / wall_ms:.1%}), paged_decode "
-          f"{paged:.3f} ms/step ({paged / dev_ms:.1%} of kernel time)")
+          f"{paged:.3f} ms/step ({paged / dev_ms:.1%} of kernel time); the "
+          f"n_splits lookup (a tuner memo hit) {lookup_us:.1f} us on the host, "
+          f"{lookup_us * cfg.n_layers / 1e3:.3f} ms/step over {cfg.n_layers} layers")
     print("decode step top kernels (ms/step): " + "; ".join(
         f"{k[:60]} {t:.3f}" for k, t in top))
 
@@ -390,6 +456,299 @@ def reference_phase() -> None:
           f"max_abs_err={err:.3e} (tol 2e-3)")
     if not err <= 2e-3:
         raise AssertionError(f"card disagrees with the CPU path: {err}")
+
+
+# ---------------------------------------------------------------------------
+# The kernel autotuner and the two kernels it times
+# ---------------------------------------------------------------------------
+
+
+def tuned_kernels() -> dict:
+    """The kernels with a tiling runner, by tiling name."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.paged_decode.kernel import paged_decode_cuda
+    from repro_torch.kernels.ssm_scan.kernel import ssd_chunk_cuda
+
+    return {"flash_attention": flash_attention_cuda,
+            "ssm_scan": ssd_chunk_cuda, "paged_decode": paged_decode_cuda}
+
+
+class TunerWindow:
+    """The process tuner's searches and the launches its timing made during
+    one window of the main path (counted apart from the path's own)."""
+
+    def __init__(self):
+        from repro_torch.kernels import autotune
+
+        self.tuner = autotune.get_tuner()
+        self.misses, self.timed = self.tuner.misses, self.tuner.timed
+        self.launches = {n: k.tuner_launches for n, k in tuned_kernels().items()}
+
+    def report(self, label: str) -> None:
+        extra = {n: k.tuner_launches - self.launches[n]
+                 for n, k in tuned_kernels().items()}
+        print(f"{label} window: tuner misses {self.tuner.misses - self.misses}, "
+              f"configs timed {self.tuner.timed - self.timed}, tuner launches "
+              f"(counted apart) {extra}")
+
+
+def served_table_widths(blocks_per_seq: int) -> list[int]:
+    """The block-table widths ``ContinuousEngine._decode_once`` passes:
+    the next power of two of the blocks needed, capped at the row width."""
+    widths, nb = {blocks_per_seq}, 1
+    while nb < blocks_per_seq:
+        widths.add(nb)
+        nb *= 2
+    return sorted(widths)
+
+
+def tune_phase() -> dict:
+    """The autotuner on the card, installed as the process default for the
+    rest of the run (serve and cnn read their tuned configs from it)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine.devices import from_torch_device
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import tiling as flash_tiling
+    from repro_torch.kernels.paged_decode import tiling as pd_tiling
+    from repro_torch.kernels.ssm_scan import tiling as ssm_tiling
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.kv_cache import resolve_block_size
+
+    path = ROOT / "build" / "repro_torch" / "tune_phase_cache.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)          # a fresh cache: every shape is searched
+    spec = from_torch_device()
+    tuner = autotune.KernelTuner(spec, cache=str(path), measure=True)
+    autotune.set_tuner(tuner)
+    kernels = tuned_kernels()
+    for k in kernels.values():
+        k.launches = k.tuner_launches = 0
+    timed = {}
+    cfg = get_config("qwen3-4b")
+    t0 = time.perf_counter()
+
+    before = tuner.timed
+    warm = T.warm_autotune(cfg, batch_size=TUNE_BATCH, seq_len=TUNE_SEQ,
+                           stages=("prefill", "decode"))
+    timed["flash_attention"] = tuner.timed - before
+
+    before = tuner.timed
+    s = SSD_SHAPE
+    ssd_key = ssm_tiling.shape_key((s["B"], s["S"], s["H"], s["P"]), s["N"],
+                                   dtype="float32")
+    tuner.tune("ssm_scan", ssd_key)
+    timed["ssm_scan"] = tuner.timed - before
+
+    before = tuner.timed
+    bs = resolve_block_size(cfg, n_slots=8, max_len=2048)   # serve_kv, by model
+    for nb in served_table_widths(-(-2048 // bs)):
+        tuner.tune("paged_decode", pd_tiling.shape_key(
+            8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, nb, bs, T.DTYPE))
+    timed["paged_decode"] = tuner.timed - before
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    print(f"tune spec {spec.name} (from_torch_device, fingerprint "
+          f"{spec.fingerprint()}), fresh cache {path.relative_to(ROOT)}: "
+          f"warm_autotune(qwen3-4b, batch {TUNE_BATCH}, seq {TUNE_SEQ}, "
+          f"prefill+decode) -> {warm}; {tuner.misses} searches, "
+          f"{tuner.timed} configs timed, in {wall:.1f} s")
+    for e in sorted(tuner.cache.entries(),
+                    key=lambda e: (e["kernel"], json.dumps(e["shape"], sort_keys=True))):
+        measured = "-" if e["measured_us"] is None else f"{e['measured_us']:.1f}"
+        print(f"tune {e['kernel']} {json.dumps(e['shape'], sort_keys=True)}: "
+              f"config {e['config']} source {e['source']} measured_us {measured} "
+              f"model_us {e['model_us']:.2f} (default {e['default_config']} "
+              f"model_us {e['default_model_us']:.2f}) candidates "
+              f"{e['candidates']} rejected_smem {e['rejected_vmem']} "
+              f"smem_kb {e['vmem_kb']:.1f}")
+        if e["kernel"] in kernels and e["source"] != "timed":
+            raise AssertionError(f"{e['kernel']} was not timed: {e}")
+    counts = {}
+    for name, k in kernels.items():
+        want = 4 * timed[name]
+        print(f"tune {name}: {timed[name]} configs timed -> tuner_launches="
+              f"{k.tuner_launches} (expected {want}: one warm and three timed "
+              f"calls each), main-path launches={k.launches}")
+        if not k.tuner_launches == want > 0 or k.launches != 0:
+            raise AssertionError(f"{name} launches do not match the tuner's "
+                                 f"counts: {k.tuner_launches} != {want}")
+        counts[name] = k.tuner_launches
+    prefill = flash_tiling.shape_key(
+        (TUNE_BATCH, cfg.n_heads, TUNE_SEQ, cfg.head_dim_),
+        (TUNE_BATCH, cfg.n_kv_heads, TUNE_SEQ, cfg.head_dim_),
+        causal=True, dtype=T.DTYPE)
+    decode = dict(prefill, Sq=1)
+    ssd_tiling = autotune.get_tiling("ssm_scan")
+    return {"launches": counts,
+            "flash_prefill": tuner.tune("flash_attention", prefill),
+            "flash_decode": tuner.tune("flash_attention", decode),
+            "ssd_chunk": tuner.tune("ssm_scan", ssd_key)["chunk"],
+            "ssd_chunks": [c["chunk"] for c in ssd_tiling.candidates(ssd_key)
+                           if autotune.smem_ok(ssd_tiling.cost(ssd_key, c))]}
+
+
+def flash_check(gen, label, B, H, Hkv, Sq, Sk, Dh, dtype, *, causal=True,
+                q_offset=0, block_q=512, block_k=512) -> tuple[float, tuple]:
+    """flash attention against its plain version on the same card inputs;
+    raises outside ``FLASH_TOL``, else returns (max abs error, inputs)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q = torch.randn(B, H, Sq, Dh, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, Sk, Dh, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, Sk, Dh, generator=gen, device="cuda").to(dtype)
+    got = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset,
+                               block_q=block_q, block_k=block_k)
+    want = attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    name = str(dtype).removeprefix("torch.")
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention output bad at {label}")
+    err = float((got.float() - want.float()).abs().max())
+    print(f"kernel flash_attention {label} B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} "
+          f"Dh={Dh} {name} causal={causal} q_offset={q_offset} block_q={block_q} "
+          f"block_k={block_k}: max_abs_err={err:.3e} (tol {FLASH_TOL[name]})")
+    if not err <= FLASH_TOL[name]:
+        raise AssertionError(f"flash_attention disagrees at {label}: {err}")
+    return err, (q, k, v, got)
+
+
+def flash_kernel_phase(flush, tuned: dict) -> dict:
+    """flash attention against its plain version at the qwen3-4b prefill
+    shape (bf16 and f32, at the tuned config), a 512-query chunk at
+    q_offset 1024, decode (Sq = 1), S = 384 and fully masked rows; then
+    kernel, plain version and ``scaled_dot_product_attention`` timed at the
+    prefill shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, H, Hkv, S, Dh = TUNE_BATCH, 32, 8, TUNE_SEQ, 128
+    pre, dec = tuned["flash_prefill"], tuned["flash_decode"]
+    err, (q, k, v, _) = flash_check(gen, "qwen3-4b prefill (tuned)", B, H, Hkv, S, S,
+                                    Dh, torch.bfloat16, **pre)
+    flash_check(gen, "qwen3-4b prefill (tuned)", B, H, Hkv, S, S, Dh,
+                torch.float32, **pre)
+    flash_check(gen, "qwen3-4b prefill (default blocks)", B, H, Hkv, S, S, Dh,
+                torch.bfloat16)
+    flash_check(gen, "512-query chunk", B, H, Hkv, 512, S, Dh, torch.bfloat16,
+                q_offset=1024)
+    flash_check(gen, "decode (tuned)", B, H, Hkv, 1, S, Dh, torch.bfloat16,
+                q_offset=S - 1, **dec)
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_check(gen, "S=384", 2, H, Hkv, 384, 384, Dh, dtype)
+    flash_check(gen, "bidirectional Dh=64", 2, 16, 4, 200, 300, 64, torch.float32,
+                causal=False, block_q=100, block_k=150)
+    _, (mq, mk, mv, mo) = flash_check(gen, "rows 0-3 fully masked", 1, H, Hkv, 64,
+                                      256, Dh, torch.float32, q_offset=-4,
+                                      block_q=64, block_k=64)
+    mean_err = float((mo[:, :, :4].float()
+                      - mv.repeat_interleave(H // Hkv, 1).float().mean(2, keepdim=True)
+                      ).abs().max())
+    print(f"kernel flash_attention fully masked rows against mean(V): "
+          f"max_abs_err={mean_err:.3e} (tol {FLASH_TOL['float32']})")
+    if not mean_err <= FLASH_TOL["float32"]:
+        raise AssertionError(f"fully masked rows are not mean(V): {mean_err}")
+
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    lib_err = float((F.scaled_dot_product_attention(q, kr, vr, is_causal=True).float()
+                     - attention_ref(q, k, v).float()).abs().max())
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v, **pre), flush, 10, 2)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v), flush, 5, 1)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
+                         flush, 10, 2)
+    ms_again = time_ms(lambda: flash_attention_cuda(q, k, v, **pre), flush, 10, 2)
+    flops = 4 * B * H * S * S * Dh * 0.5
+    nbytes = 2 * (2 * B * H * S * Dh + 2 * B * Hkv * S * Dh)
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"timing flash_attention qwen3-4b prefill B={B} H={H} Hkv={Hkv} S={S} "
+          f"Dh={Dh} bf16 causal at {pre}: kernel {ms:.4f} / {ms_again:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {library_ms:.4f} ms (max_abs_err vs plain "
+          f"{lib_err:.3e}), bound {bound_ms:.4f} ms ({bound_by}) -> "
+          f"{bound_ms / ms:.1%} of bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def ssd_kernel_phase(flush, tuned: dict) -> dict:
+    """The SSD intra-chunk kernel against its plain version at the
+    mamba2-780m shape (f32) for every chunk the tuner may return, and the
+    whole op (kernel + recurrence) against ``ssd_ref`` with an initial
+    state and split in two halves; then kernel and plain version timed at
+    the tuned chunk."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.kernel import ssd_chunk_cuda
+    from repro_torch.kernels.ssm_scan.ops import ssd
+    from repro_torch.kernels.ssm_scan.ref import ssd_chunk_ref, ssd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, S, H, P, N = (SSD_SHAPE[k] for k in ("B", "S", "H", "P", "N"))
+    xh = torch.randn(B, S, H, P, generator=gen, device="cuda")
+    a = -torch.randn(B, S, H, generator=gen, device="cuda").abs() * 0.1
+    Bm = torch.randn(B, S, N, generator=gen, device="cuda")
+    Cm = torch.randn(B, S, N, generator=gen, device="cuda")
+    s0 = torch.randn(B, H, P, N, generator=gen, device="cuda") * 0.1
+    worst = 0.0
+    for ch in tuned["ssd_chunks"]:
+        got = ssd_chunk_cuda(xh, a, Bm, Cm, chunk=ch)
+        want = ssd_chunk_ref(xh, a, Bm, Cm, chunk=ch)
+        y, st = ssd(xh, a, Bm, Cm, chunk=ch, initial_state=s0)
+        y_ref, st_ref = ssd_ref(xh, a, Bm, Cm, chunk=ch, initial_state=s0)
+        half = S // 2
+        y1, st1 = ssd(*(t[:, :half] for t in (xh, a, Bm, Cm)), chunk=ch,
+                      initial_state=s0)
+        y2, st2 = ssd(*(t[:, half:] for t in (xh, a, Bm, Cm)), chunk=ch,
+                      initial_state=st1)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (*got, y, st, y2, st2)):
+            raise AssertionError(f"ssd output not finite at chunk {ch}")
+        errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+        op_err = max(float((y - y_ref).abs().max()), float((st - st_ref).abs().max()))
+        split_err = max(float((torch.cat([y1, y2], 1) - y_ref).abs().max()),
+                        float((st2 - st_ref).abs().max()))
+        print(f"kernel ssd_chunk B={B} S={S} H={H} P={P} N={N} f32 chunk={ch}: "
+              f"max_abs_err y_diag {errs[0]:.3e} states {errs[1]:.3e} decay "
+              f"{errs[2]:.3e} cum {errs[3]:.3e}; ssd op with initial_state vs "
+              f"ssd_ref {op_err:.3e}, two halves chained {split_err:.3e} "
+              f"(tol {SSD_TOL}; |y| up to {float(y_ref.abs().max()):.1f})")
+        if not max(*errs, op_err, split_err) <= SSD_TOL:
+            raise AssertionError(f"ssd_chunk disagrees at chunk {ch}")
+        if ch == tuned["ssd_chunk"]:
+            worst = max(errs)
+
+    ch = tuned["ssd_chunk"]
+    ms = time_ms(lambda: ssd_chunk_cuda(xh, a, Bm, Cm, chunk=ch), flush, 20, 3)
+    plain_ms = time_ms(lambda: ssd_chunk_ref(xh, a, Bm, Cm, chunk=ch), flush, 10, 2)
+    op_ms = time_ms(lambda: ssd(xh, a, Bm, Cm, chunk=ch), flush, 10, 2)
+    ms_again = time_ms(lambda: ssd_chunk_cuda(xh, a, Bm, Cm, chunk=ch), flush, 20, 3)
+    # least work: C·Bᵀ once per chunk (the heads share one group), then per
+    # head the lower triangle of (s∘L)·x and the (N, P) state
+    nc, tri = S // ch, ch * (ch + 1) / 2
+    flops = 2 * B * nc * (tri * N + H * (tri * P + ch * N * P))
+    nbytes = 4 * (2 * B * S * H * P + 2 * B * S * N + 2 * B * S * H
+                  + B * nc * H * (N * P + 1))
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"timing ssd_chunk mamba2-780m B={B} S={S} H={H} P={P} N={N} f32 at the "
+          f"tuned chunk {ch}: kernel {ms:.4f} / {ms_again:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, whole op (kernel + recurrence) {op_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}) -> {bound_ms / ms:.1%} of bound; no single PyTorch call "
+          f"computes it")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -659,6 +1018,7 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
 
     torch.cuda.synchronize()
     conv_mm_cuda.launches = 0
+    window = TunerWindow()
     t0 = time.perf_counter()
     points = {name: collect_grid(spec, cache, repeats=repeats, warmup=warmup,
                                  device="cuda")
@@ -666,6 +1026,7 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = conv_mm_cuda.launches
+    window.report("cnn grid")
     n_points = sum(map(len, points.values()))
     print(f"cnn grid ResNet-50 width 1.0 32x32 f32, batch sizes {list(GRID_BS)}, "
           f"repeats={repeats} warmup={warmup}: {n_points} datapoints profiled in "
@@ -776,7 +1137,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from repro_torch.kernels.conv_mm import kernel as conv_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.paged_decode import kernel as decode_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ssd_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -786,7 +1149,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     wrappers = {"paged_decode": (decode_kernel.paged_decode_cuda, decode_kernel.SOURCES),
-                "conv_mm": (conv_kernel.conv_mm_cuda, conv_kernel.SOURCES)}
+                "conv_mm": (conv_kernel.conv_mm_cuda, conv_kernel.SOURCES),
+                "flash_attention": (flash_kernel.flash_attention_cuda, flash_kernel.SOURCES),
+                "ssd_chunk": (ssd_kernel.ssd_chunk_cuda, ssd_kernel.SOURCES)}
     with ThreadPoolExecutor(len(wrappers)) as pool:   # one nvcc each, together
         libs = list(pool.map(lambda w: w[0].load(), wrappers.values()))
     for (name, (wrapper, sources)), lib in zip(wrappers.items(), libs):
@@ -794,11 +1159,18 @@ def main() -> int:
         print(f"build {name} ({', '.join(str(s.relative_to(ROOT)) for s in sources)}): "
               f"nvcc {wrapper.build_seconds:.1f} s; ptxas: {ptxas_summary(log)}")
     print(f"build all kernels ready in {time.perf_counter() - t0:.1f} s")
+    check_smem_formulas(libs[2], libs[3])
 
+    t0 = time.perf_counter()
+    tuned = tune_phase()
+    print(f"tune phase done in {time.perf_counter() - t0:.1f} s")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     timing = kernel_phase(flush)
     conv_timing = conv_kernel_phase(flush)
+    flash_timing = flash_kernel_phase(flush, tuned)
+    ssd_timing = ssd_kernel_phase(flush, tuned)
     del flush
+    torch.cuda.empty_cache()
     served = serve_phase()
     reference_phase()
     cnn = cnn_phase()
@@ -819,6 +1191,20 @@ def main() -> int:
         "launches": cnn["launches"],
         "max_abs_err": cnn["max_abs_err"],
         **conv_timing,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": str(flash_kernel.SOURCES[0].relative_to(ROOT)),
+        "replaces": FLASH_REPLACES,
+        "launches": tuned["launches"]["flash_attention"],
+        **flash_timing,
+    }, {
+        "name": "ssd_chunk",
+        "route": "cuda",
+        "source": str(ssd_kernel.SOURCES[0].relative_to(ROOT)),
+        "replaces": SSD_REPLACES,
+        "launches": tuned["launches"]["ssm_scan"],
+        **ssd_timing,
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"device {card_line()}")

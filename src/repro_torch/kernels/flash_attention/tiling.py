@@ -1,0 +1,122 @@
+"""Tiling search space + static cost model for flash attention (port of
+``repro/kernels/flash_attention/tiling.py``).
+
+``shape_key``, ``candidates``, ``default`` and ``cost``'s flops, HBM
+bytes, VMEM working set and step count are the reference's, so a TPU spec
+ranks them identically.  On top, ``cost`` reports ``smem_bytes``: the
+shared memory one block of the port's CUDA kernel (``csrc/
+flash_attention.cu``) takes at this config, which is what a CUDA spec
+budgets.  The tuner's two knobs map onto that kernel as follows:
+
+* ``block_q`` — query rows per block (grid = B × H × Sq/block_q); the
+  block walks them in passes of 64 rows, so it sets parallelism and K/V
+  reuse, not shared memory;
+* ``block_k`` — keys per online-softmax step: the block keeps a
+  64 × block_k f32 score strip in shared memory and rescales its
+  accumulator once per step.  A wide step does not fit: at Dh 128,
+  block_k 1024 needs 329,216 B, so under a CUDA spec the tuner rejects it
+  (``smem_bytes`` > 232,448 B) and every config it can return launches.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.autotune import (
+    KernelCost,
+    TilingModel,
+    bytes_per_element,
+    largest_dividing_block,
+    register_tiling,
+)
+
+__all__ = ["shape_key", "candidates", "cost", "default", "smem_bytes",
+           "ROWS_PER_PASS", "KEYS_PER_STAGE"]
+
+_BLOCK_SEEDS = (64, 128, 256, 512, 1024)
+
+# The CUDA kernel's own tile (csrc/flash_attention.cu: kRows, kKeys).
+ROWS_PER_PASS = 64
+KEYS_PER_STAGE = 64
+
+
+def smem_bytes(Dh: int, block_k: int) -> int:
+    """Shared memory of one block of the CUDA kernel: the q pass and one
+    K/V stage (64 rows × (Dh + 1) f32 each), the score strip
+    (64 × (block_k + 1) f32) and three f32 row statistics.  The kernel
+    computes the same number (``flash_attention_smem_bytes``)."""
+    floats = (ROWS_PER_PASS * (Dh + 1) + KEYS_PER_STAGE * (Dh + 1)
+              + ROWS_PER_PASS * (block_k + 1) + 3 * ROWS_PER_PASS)
+    return 4 * floats
+
+
+def shape_key(q_shape, k_shape, *, causal: bool, dtype) -> dict:
+    B, H, Sq, Dh = (int(d) for d in q_shape)
+    Hkv, Sk = int(k_shape[1]), int(k_shape[2])
+    return {"B": B, "H": H, "Hkv": Hkv, "Sq": Sq, "Sk": Sk, "Dh": Dh,
+            "causal": bool(causal), "dtype": str(dtype).removeprefix("torch.")}
+
+
+def _snap(n: int) -> list[int]:
+    return sorted({largest_dividing_block(n, b) for b in _BLOCK_SEEDS} | {n})
+
+
+def candidates(shape: dict) -> list[dict]:
+    return [{"block_q": bq, "block_k": bk}
+            for bq in _snap(shape["Sq"]) for bk in _snap(shape["Sk"])]
+
+
+def default(shape: dict) -> dict:
+    # the kernel's hand-picked constants, after its own min(·, S) clamp
+    return {"block_q": largest_dividing_block(shape["Sq"], 512),
+            "block_k": largest_dividing_block(shape["Sk"], 512)}
+
+
+def cost(shape: dict, config: dict) -> KernelCost:
+    B, H, Hkv = shape["B"], shape["H"], shape["Hkv"]
+    Sq, Sk, Dh = shape["Sq"], shape["Sk"], shape["Dh"]
+    bq = largest_dividing_block(Sq, config.get("block_q"))
+    bk = largest_dividing_block(Sk, config.get("block_k"))
+    bpe = bytes_per_element(shape["dtype"])
+
+    frac = 0.5 if shape["causal"] else 1.0  # masked-out score work skipped
+    flops = 4.0 * B * H * Sq * Sk * Dh * frac
+    # q/o once; K/V once per kv head
+    hbm = bpe * (2.0 * B * H * Sq * Dh + 2.0 * B * Hkv * Sk * Dh)
+    vmem = (bpe * (bq * Dh + 2 * Sk * Dh + bq * Dh)   # q, K/V, o blocks
+            + 4.0 * bq * Dh                            # f32 accumulator
+            + 4.0 * bq * bk                            # f32 score/prob tile
+            + 4.0 * 3 * bq)                            # m/l running stats
+    n_programs = B * H * (Sq // bq)
+    return KernelCost(
+        op="flash_attention", op_class="matmul", origin="kernel",
+        flops=flops, hbm_bytes=hbm, vmem_bytes=vmem,
+        n_steps=n_programs * (1 + Sk // bk),
+        mxu_min_dim=min(bq, bk, Dh),
+        smem_bytes=smem_bytes(Dh, bk),
+    )
+
+
+def _runner(shape: dict, config: dict):
+    """Random q/k/v on the card (seed 0) and one ``ops.flash_attention``
+    launch per call at this config."""
+    import torch
+
+    from .ops import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dtype = getattr(torch, shape["dtype"])
+
+    def draw(*s):
+        return torch.randn(*s, generator=gen, device="cuda").to(dtype)
+
+    q = draw(shape["B"], shape["H"], shape["Sq"], shape["Dh"])
+    k = draw(shape["B"], shape["Hkv"], shape["Sk"], shape["Dh"])
+    v = draw(shape["B"], shape["Hkv"], shape["Sk"], shape["Dh"])
+    bq, bk = config["block_q"], config["block_k"]
+    return lambda: flash_attention(q, k, v, causal=shape["causal"],
+                                   block_q=bq, block_k=bk)
+
+
+register_tiling(TilingModel(
+    name="flash_attention", candidates=candidates, cost=cost, default=default,
+    runner=_runner,
+), overwrite=True)

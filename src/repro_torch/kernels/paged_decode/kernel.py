@@ -18,6 +18,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.autotune import timing_launches
 from repro_torch.kernels.build import build_library
 
 __all__ = ["PagedDecodeKernel", "paged_decode_cuda", "SOURCES"]
@@ -30,10 +31,13 @@ _HEAD_DIMS = (64, 128)
 
 class PagedDecodeKernel:
     """Callable wrapper around the CUDA kernel.  ``launches`` counts the
-    calls that launched it (one per call, the split combine included)."""
+    calls that launched it (one per call, the split combine included);
+    launches made while the autotuner times a config count in
+    ``tuner_launches`` instead."""
 
     def __init__(self):
         self.launches = 0
+        self.tuner_launches = 0
         self._lib = None
         self.build_seconds = 0.0
 
@@ -106,7 +110,10 @@ class PagedDecodeKernel:
         if rc != 0:
             raise RuntimeError(f"paged_decode kernel launch failed "
                                f"(cudaError {rc})")
-        self.launches += 1
+        if timing_launches():
+            self.tuner_launches += 1
+        else:
+            self.launches += 1
         return out
 
 

@@ -7,12 +7,15 @@ CPU tensor goes to the plain version (``ref.paged_decode_ref``).  There is
 no other switch: the JAX package's ``impl=`` argument and its
 ``REPRO_PAGED_DECODE`` variable have no counterpart here.
 
-``n_splits=None`` takes the tiling default (``tiling.default``; the
-autotuner comes with a later slice).  ``block_kv`` is passed through: the
-CUDA kernel sets no tile from it (see its source note).
+``block_kv=None`` / ``n_splits=None`` consult the process autotuner for
+this launch shape, as in the reference (``ops.py:63``); explicit values
+always win.  ``block_kv`` is passed through: the CUDA kernel sets no tile
+from it (see its source note).
 """
 
 from __future__ import annotations
+
+from repro_torch.kernels.autotune import tuned_config
 
 from . import tiling
 from .kernel import paged_decode_cuda
@@ -26,12 +29,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, cache_len, *,
     """q: (B, H, Dh); k/v_pool: (P, bs, Hkv, Dh); block_table: (B, NB)
     int32; cache_len: (B,) int32 → (B, H, Dh), attending logical
     positions ``<= cache_len[b]`` of each row's paged KV history."""
+    if block_kv is None or n_splits is None:
+        B, H, Dh = q.shape
+        shape = tiling.shape_key(B, H, k_pool.shape[2], Dh,
+                                 block_table.shape[1], k_pool.shape[1],
+                                 q.dtype)
+        tuned = tuned_config("paged_decode", shape, tiling.default(shape))
+        block_kv = block_kv if block_kv is not None else tuned.get(
+            "block_kv", 128)
+        n_splits = n_splits if n_splits is not None else tuned.get(
+            "n_splits", 1)
     if q.device.type == "cuda":
-        if n_splits is None:
-            B, H, Dh = q.shape
-            n_splits = tiling.default(tiling.shape_key(
-                B, H, k_pool.shape[2], Dh, block_table.shape[1],
-                k_pool.shape[1], q.dtype))["n_splits"]
         return paged_decode_cuda(q, k_pool, v_pool, block_table, cache_len,
                                  scale=scale, block_kv=block_kv,
                                  n_splits=n_splits)

@@ -3,8 +3,13 @@
 This slice ports what a dense self-attention stack needs: ``rms_norm``,
 ``rope``, ``_mask_bias``, ``blocked_attention``, ``attention_block`` (no
 cache, dense cache and paged pool) and ``mlp_block``, plus the parameter
-modules ``Attention`` and ``MLP``.  Cross-attention, ``moe_block`` and
-``ssd_block`` come with later slices.
+modules ``Attention`` and ``MLP``; and the chunked SSD scan ``ssd_scan``
+(with ``_segsum``), the oracle of the SSD kernel.  Cross-attention,
+``moe_block`` and ``ssd_block`` come with later slices.
+
+``blocked_attention``'s query block comes from the kernel autotuner when
+the caller passes none (``_tuned_attention_block_q``): it shares the
+flash-attention tiling model and cache, as in the reference.
 
 Parameters keep the JAX layout: ``(in, out)`` weights used as ``x @ W``.
 Caches are updated in place (``index_put_`` / slice assignment) where the
@@ -24,7 +29,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.autotune import largest_dividing_block
 from repro_torch.kernels.paged_decode import paged_decode_attention
 
 __all__ = [
@@ -35,6 +39,7 @@ __all__ = [
     "blocked_attention",
     "attention_block",
     "mlp_block",
+    "ssd_scan",
 ]
 
 _NEG_INF = -1e30
@@ -74,6 +79,23 @@ class MLP(nn.Module):
         self.gate = _param((D, Ff), dtype, device)
         self.up = _param((D, Ff), dtype, device)
         self.down = _param((Ff, D), dtype, device)
+
+
+def _tuned_attention_block_q(q, k, causal: bool) -> int:
+    """Query-block size for :func:`blocked_attention`, from the autotuner.
+
+    Shares the flash-attention tiling model (and its device-keyed cache)
+    with the kernel, as the reference does (``layers.py:87-103``); falls
+    back to the tiling default, the largest divisor of Sq ≤ 512."""
+    from repro_torch.kernels.autotune import tuned_config
+    from repro_torch.kernels.flash_attention import tiling
+
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    shape = tiling.shape_key((B, H, Sq, Dh), (B, Hkv, k.shape[1], Dh),
+                             causal=causal, dtype=q.dtype)
+    return int(tuned_config("flash_attention", shape,
+                            tiling.default(shape)).get("block_q", 512))
 
 
 def rms_norm(x, w, eps: float = 1e-6):
@@ -143,8 +165,8 @@ def blocked_attention(
     q: (B, Sq, H, Dh);  k, v: (B, Sk, Hkv, Dh).  Returns (B, Sq, H, Dh) in
     v's dtype.  Scores are f32 (JAX's ``preferred_element_type``); the
     probabilities are cast to v's dtype before the PV product, as in the
-    reference.  ``block_q=None`` takes the flash-attention tiling default
-    of the reference, the largest divisor of Sq that is ≤ 512.
+    reference.  ``block_q=None`` → autotuned (shared flash-attention
+    tiling cache).
     """
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
@@ -152,7 +174,7 @@ def blocked_attention(
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     qr = (q * scale).reshape(B, Sq, Hkv, rep, Dh)
     if block_q is None:
-        block_q = largest_dividing_block(Sq, 512)
+        block_q = _tuned_attention_block_q(q, k, mask_kind != "full")
     kf = k.float()
 
     def one_block(qblk, qpos):
@@ -273,3 +295,77 @@ def attention_block(
 def mlp_block(x, p):
     h = F.silu(x @ p.gate) * (x @ p.up)
     return h @ p.down
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD scan (the oracle of the SSD kernel; ``ssd_block`` comes later)
+# ---------------------------------------------------------------------------
+
+
+def _segsum(a):
+    """Stable segment-sum: out[..., i, j] = sum a[..., j+1..i], -inf for j>i."""
+    L = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones(L, L, dtype=torch.bool, device=a.device))
+    return torch.where(mask, out, -torch.inf)
+
+
+def ssd_scan(xh, a, Bm, Cm, chunk: int, initial_state=None):
+    """Chunked SSD (Mamba-2 alg. 1 / "minimal ssd"), in plain PyTorch.
+
+    xh: (B, S, H, P) inputs (already dt-scaled)
+    a:  (B, S, H)    log-decay per step (dt · A, negative)
+    Bm, Cm: (B, S, G, N) state in/out projections (G groups, broadcast to H)
+    Returns y: (B, S, H, P) in xh's dtype, final_state: (B, H, P, N) f32.
+    Products are taken in f32, as the reference's
+    ``preferred_element_type=float32`` einsums; its ``lax.scan`` over
+    chunks is a Python loop.
+    """
+    B, S0, H, P = xh.shape
+    G = Bm.shape[2]
+    pad = (-S0) % chunk
+    if pad:  # zero-pad: a=0 ⇒ decay 1, x=0 ⇒ no state contribution
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        a = F.pad(a, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    S = S0 + pad
+    nc = S // chunk
+    rep = H // G
+
+    def c(t):  # (B, S, ...) -> (B, nc, chunk, ...)
+        return t.reshape(t.shape[0], nc, chunk, *t.shape[2:])
+
+    xc, ac, Bc, Cc = c(xh).float(), c(a), c(Bm).float(), c(Cm).float()
+    ac = ac.movedim(-1, 2)                  # (B, nc, H, chunk)
+    cum_a = torch.cumsum(ac, dim=-1)        # (B, nc, H, chunk)
+
+    # 1. intra-chunk (diagonal blocks)
+    L = torch.exp(_segsum(ac.float()))                            # (B,nc,H,l,l)
+    Cr = Cc.repeat_interleave(rep, dim=3) if G != H else Cc       # broadcast groups
+    Br = Bc.repeat_interleave(rep, dim=3) if G != H else Bc
+    s = torch.einsum("bclhn,bcshn->bchls", Cr, Br)
+    y_diag = torch.einsum("bchls,bchls,bcshp->bclhp", s, L, xc)
+
+    # 2. per-chunk final states
+    decay_states = torch.exp(cum_a[..., -1:] - cum_a)             # (B,nc,H,l)
+    states = torch.einsum("bclhn,bchl,bclhp->bchpn", Br,
+                          decay_states.float(), xc)               # (B,nc,H,P,N)
+
+    # 3. inter-chunk recurrence (the reference's lax.scan over chunks)
+    chunk_decay = torch.exp(cum_a[..., -1]).float()               # (B,nc,H)
+    carry = (initial_state.float() if initial_state is not None
+             else torch.zeros(B, H, P, Bm.shape[3], device=xh.device))
+    prev = []
+    for i in range(nc):
+        prev.append(carry)              # the state entering chunk i
+        carry = carry * chunk_decay[:, i, :, None, None] + states[:, i]
+    prev_states = torch.stack(prev, dim=1)                        # (B,nc,H,P,N)
+
+    # 4. state → output contribution
+    state_decay = torch.exp(cum_a).float()                        # (B,nc,H,l)
+    y_off = torch.einsum("bclhn,bchpn,bchl->bclhp", Cr, prev_states,
+                         state_decay)
+    y = (y_diag + y_off).reshape(B, S, H, P)[:, :S0]
+    return y.to(xh.dtype), carry

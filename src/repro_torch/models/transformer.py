@@ -4,9 +4,12 @@ This slice ports the dense self-attention stack that the serving path
 runs (qwen3-4b and the other ``family="dense"`` configs): ``layer_plan``,
 the parameter shapes, ``init_params``, ``_run_stack``, ``_prefill_like``,
 ``prefill``, ``decode_step``, ``forward``, ``init_cache``,
-``paged_cache_shapes`` and ``init_paged_cache``.  MoE, SSM, hybrid and
-encoder-decoder plans, ``loss_fn`` and the abstract specs come with later
-slices; ``layer_plan`` raises for them.
+``paged_cache_shapes``, ``init_paged_cache``, the abstract specs
+(``param_specs``, ``cache_specs``, ``input_specs``: tensors on the meta
+device, the counterpart of JAX's ``ShapeDtypeStruct``) and
+``warm_autotune`` for the prefill and decode stages.  MoE, SSM, hybrid and
+encoder-decoder plans and ``loss_fn`` come with later slices;
+``layer_plan`` raises for them and ``warm_autotune`` refuses "train".
 
 Parameters live in :class:`LM`: ``embed`` (V_padded, D), ``final_norm``,
 one :class:`Block` per layer in ``blocks`` (an ``nn.ModuleList``) and,
@@ -23,6 +26,7 @@ Entry points:
     decode_step(params, cache, batch, cfg)   -- step over a dense or paged cache
     init_params(cfg, seed, device=)          -- the reference's numpy draws
     init_cache / init_paged_cache(..., device=)
+    warm_autotune(cfg, batch_size=, seq_len=, stages=)
 """
 
 from __future__ import annotations
@@ -58,6 +62,10 @@ __all__ = [
     "init_cache",
     "paged_cache_shapes",
     "init_paged_cache",
+    "param_specs",
+    "cache_specs",
+    "input_specs",
+    "warm_autotune",
 ]
 
 DTYPE = torch.bfloat16
@@ -90,10 +98,17 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, dtype=dtype, device=device)
 
 
+def _device(device) -> torch.device:
+    """``resolve_device``, plus the meta device of the abstract specs."""
+    if torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype=DTYPE, device="cuda"):
         super().__init__()
-        device = resolve_device(device)
+        device = _device(device)
         n_layers, _ = layer_plan(cfg)
         V = cfg.padded_vocab()
         self.embed = _param((V, cfg.d_model), dtype, device)
@@ -296,7 +311,7 @@ def cache_shapes(cfg: ArchConfig, B: int, max_len: int) -> dict:
 def init_cache(cfg: ArchConfig, B: int, max_len: int, *, device="cuda",
                dtype=DTYPE) -> dict:
     """Zero dense KV cache, bf16 like the reference's."""
-    device = resolve_device(device)
+    device = _device(device)
     return {sub: {name: torch.zeros(s, dtype=dtype, device=device)
                   for name, s in leaves.items()}
             for sub, leaves in cache_shapes(cfg, B, max_len).items()}
@@ -315,8 +330,78 @@ def paged_cache_shapes(cfg: ArchConfig, n_blocks: int, block_size: int) -> dict:
 def init_paged_cache(cfg: ArchConfig, n_blocks: int, block_size: int, *,
                      device="cuda", dtype=DTYPE) -> dict:
     """Zero-filled block pool (see :func:`paged_cache_shapes`)."""
-    device = resolve_device(device)
+    device = _device(device)
     return {sub: {name: torch.zeros(s, dtype=dtype, device=device)
                   for name, s in leaves.items()}
             for sub, leaves in paged_cache_shapes(cfg, n_blocks,
                                                   block_size).items()}
+
+
+# ---------------------------------------------------------------------------
+# Abstract specs and autotune warm-up
+# ---------------------------------------------------------------------------
+
+_META = torch.device("meta")
+
+
+def param_specs(cfg: ArchConfig) -> LM:
+    """The parameters as meta tensors: shapes and dtypes, no storage (the
+    counterpart of the reference's ``ShapeDtypeStruct`` tree)."""
+    return LM(cfg, device=_META)
+
+
+def cache_specs(cfg: ArchConfig, B: int, max_len: int) -> dict:
+    """The dense KV cache as meta tensors."""
+    return init_cache(cfg, B, max_len, device=_META)
+
+
+def input_specs(cfg: ArchConfig, kind: str, *, batch_size: int,
+                seq_len: int) -> dict:
+    """Meta stand-ins for the step inputs of one workload cell.
+
+    prefill → {batch={tokens (B, S)}};
+    decode  → {cache (dense, S long), batch={tokens (B, 1), cache_len}}.
+    ``cache_len`` is the int 0: a meta tensor has no value to read, and
+    no shape downstream depends on it."""
+    B, S = batch_size, seq_len
+    if kind == "prefill":
+        return {"batch": {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                                device=_META)}}
+    if kind == "decode":
+        return {"cache": cache_specs(cfg, B, S),
+                "batch": {"tokens": torch.empty((B, 1), dtype=torch.int32,
+                                                device=_META),
+                          "cache_len": 0}}
+    raise ValueError(f"no input specs for stage {kind!r}")
+
+
+def warm_autotune(cfg: ArchConfig, *, batch_size: int, seq_len: int,
+                  stages: tuple = ("prefill", "decode")) -> dict:
+    """Pre-populate the kernel tuning cache for one workload cell.
+
+    Traces the requested entry points on the meta device (the reference
+    uses ``jax.eval_shape``): no parameter is allocated or drawn, and
+    every autotune lookup in ``models/layers.py`` fires with exactly the
+    shapes a real run sees, so the process-default tuner searches (and, on
+    a card, times) each missing config and persists the winner.  Returns
+    the tuner's {hits, misses} delta.  ``"train"`` raises until the
+    port's ``loss_fn`` lands (ROADMAP queue 1, item 2)."""
+    from repro_torch.kernels.autotune import autotune_enabled, get_tuner
+
+    for stage in stages:
+        if stage not in ("prefill", "decode"):
+            raise NotImplementedError(
+                f"warm_autotune stage {stage!r}: the port traces prefill and "
+                f"decode; the training step (loss_fn) is not ported yet")
+    if not autotune_enabled():
+        return {"hits": 0, "misses": 0}
+    tuner = get_tuner()
+    h0, m0 = tuner.hits, tuner.misses
+    params = param_specs(cfg)
+    for stage in stages:
+        spec = input_specs(cfg, stage, batch_size=batch_size, seq_len=seq_len)
+        if stage == "decode":
+            decode_step(params, spec["cache"], spec["batch"], cfg)
+        else:
+            prefill(params, spec["batch"], cfg, max_len=seq_len)
+    return {"hits": tuner.hits - h0, "misses": tuner.misses - m0}

@@ -8,8 +8,9 @@ block table (``decode_step``'s ``block_table``).  Physical block 0 is
 reserved as scratch: idle slots point every table entry (and their
 single-token write) at it.
 
-The block size comes from the ``serve_kv`` tiling default; the reference
-resolves it through its autotuner, which the port gains in a later slice.
+The block size is resolved through the kernel autotuner's ``serve_kv``
+tiling model, which prices each candidate through the ``paged_decode``
+kernel's own cost model (joint resolution), as in the reference.
 
 Prefill packing: prompts prefill through the dense path (at a bucketed
 length, left-padded), then ``pack_prefill`` rolls the padding off, chops
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.autotune import tuned_config
 from repro_torch.kernels.serve_kv.tiling import default as _default_config
 from repro_torch.kernels.serve_kv.tiling import shape_key
 from repro_torch.models import transformer as T
@@ -31,11 +33,20 @@ from repro_torch.models import transformer as T
 __all__ = ["PagedKVCache", "resolve_block_size"]
 
 
-def resolve_block_size(cfg: ArchConfig, *, n_slots: int, max_len: int) -> int:
-    """KV block size for this serving cell: the ``serve_kv`` default."""
+def resolve_block_size(cfg: ArchConfig, *, n_slots: int, max_len: int,
+                       tuner=None) -> int:
+    """KV block size for this serving cell, via the ``serve_kv`` tiling
+    model.  With an explicit ``tuner`` the lookup is authoritative;
+    otherwise it goes through the process-default tuner
+    (:func:`~repro_torch.kernels.autotune.tuned_config`), which falls back
+    to the model's default config."""
     shape = shape_key(n_slots, max_len, cfg.n_kv_heads, cfg.head_dim_,
                       T.DTYPE, n_heads=cfg.n_heads)
-    return int(_default_config(shape)["block_size"])
+    if tuner is not None:
+        config = tuner.tune("serve_kv", shape)
+    else:
+        config = tuned_config("serve_kv", shape, _default_config(shape))
+    return int(config["block_size"])
 
 
 class PagedKVCache:

@@ -118,3 +118,47 @@ def test_conv_mm_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         conv_mm_cuda(x, w, stride=1, padding=1)
     assert conv_mm_cuda.launches == 0
+
+
+def test_flash_attention_kernel_refuses_cpu_tensors():
+    """As above for flash attention: ``ops.flash_attention`` sends CPU
+    tensors to the plain version; the CUDA wrapper raises and counts no
+    launch."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    q = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q, q, q)
+    assert flash_attention_cuda.launches == flash_attention_cuda.tuner_launches == 0
+
+
+def test_ssd_chunk_kernel_refuses_cpu_tensors():
+    """As above for the SSD intra-chunk pass (``ops.ssd`` sends CPU tensors
+    to ``ref.ssd_chunk_ref``)."""
+    from repro_torch.kernels.ssm_scan.kernel import ssd_chunk_cuda
+
+    x = torch.zeros(1, 16, 2, 8)
+    bc = torch.zeros(1, 16, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_chunk_cuda(x, torch.zeros(1, 16, 2), bc, bc, chunk=16)
+    assert ssd_chunk_cuda.launches == ssd_chunk_cuda.tuner_launches == 0
+
+
+def test_new_modules_of_the_tuner_slice_are_covered():
+    """The probe above imports every module; these are the ones the
+    autotuner slice adds, named so that a rename cannot drop them."""
+    import importlib
+
+    for name in ("repro_torch.costmodel", "repro_torch.costmodel.ledger",
+                 "repro_torch.engine", "repro_torch.engine.devices",
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.ssm_scan.kernel",
+                 "repro_torch.kernels.ssm_scan.ops",
+                 "repro_torch.kernels.moe_dispatch.tiling"):
+        importlib.import_module(name)
+    sources = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.cu")}
+    assert sources == {"kernels/paged_decode/csrc/paged_decode.cu",
+                       "kernels/conv_mm/csrc/conv_mm.cu",
+                       "kernels/flash_attention/csrc/flash_attention.cu",
+                       "kernels/ssm_scan/csrc/ssd_chunk.cu"}
