@@ -9,6 +9,11 @@ Phases (any failure raises and the script exits non-zero):
    CUDA versions;
 2. build — compile every CUDA kernel from the sources in this checkout,
    one ``nvcc`` per kernel, all started together (→ ``build/repro_torch/``);
+   print ``-Xptxas -v`` (registers, spills) for each instantiation of the
+   flash attention and convolution kernels and the count of tensor-core
+   instructions (HGMMA, HMMA) in the flash library's SASS
+   (``cuobjdump -sass``), which must not be 0; hold the shared memory the
+   tiling models report against the sources' own formulas;
 3. tune — the kernel autotuner on the card: a ``KernelTuner`` for this
    card (``from_torch_device``, ``measure=True``) on a fresh cache
    installed as the process default; ``warm_autotune`` for full-width
@@ -21,7 +26,8 @@ Phases (any failure raises and the script exits non-zero):
 4. kernels — hold each kernel against its plain PyTorch version on the
    card: paged decode at qwen3-4b decode shapes, the MM convolution on
    every convolution shape of full-width ResNet-50 and on edge cases,
-   flash attention at the qwen3-4b prefill shape and edge cases, the SSD
+   flash attention at the qwen3-4b prefill shape and edge cases (fully
+   masked rows against mean(V), also over a ragged last tile), the SSD
    intra-chunk pass at the mamba2-780m shape for every chunk the tuner may
    return; time kernel, plain version, a library yardstick and the bound
    with CUDA events;
@@ -52,6 +58,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -127,33 +134,82 @@ def time_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
 
 def ptxas_summary(log: str) -> str:
     """One line from nvcc's ``-Xptxas -v`` output: registers and spills
-    per kernel instantiation."""
-    regs, spills = [], []
-    for line in log.splitlines():
-        if "spill stores" in line:
-            spills.append(int(line.split("bytes spill stores")[0].split(",")[-1]))
-        elif "Used" in line and "registers" in line:
-            regs.append(int(line.split("Used")[1].split("registers")[0]))
-    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+    over the library's kernel instantiations."""
+    kernels = ptxas_kernels(log)
+    regs, spills = [k[1] for k in kernels], [k[2] for k in kernels]
+    return (f"{len(kernels)} kernels, {min(regs)}-{max(regs)} registers, "
             f"{sum(x > 0 for x in spills)} with spills (max {max(spills)} bytes)")
 
 
-def check_smem_formulas(flash_lib, ssd_lib) -> None:
+def check_smem_formulas(flash_lib, ssd_lib, conv_lib) -> None:
     """The shared-memory sizes the tiling models report (what the tuner
     budgets) equal the ones the CUDA sources compute and launch with."""
+    from repro_torch.kernels.conv_mm import tiling as conv_tiling
     from repro_torch.kernels.flash_attention import tiling as flash_tiling
     from repro_torch.kernels.ssm_scan import tiling as ssm_tiling
 
-    for Dh in (32, 64, 128):
-        for bk in (1, 48, 64, 100, 128, 256, 512, 640, 1024):
-            if flash_lib.flash_attention_smem_bytes(Dh, bk) != flash_tiling.smem_bytes(Dh, bk):
-                raise AssertionError(f"flash smem formula differs at Dh={Dh} block_k={bk}")
+    for dtype, flag in (("bfloat16", 1), ("float32", 0)):
+        for Dh in (32, 64, 128):
+            for bk in (1, 48, 64, 65, 100, 128, 256, 512, 640, 1024):
+                if (flash_lib.flash_attention_smem_bytes(Dh, bk, flag)
+                        != flash_tiling.smem_bytes(Dh, bk, dtype)):
+                    raise AssertionError(f"flash smem formula differs at Dh={Dh} "
+                                         f"block_k={bk} {dtype}")
+        for bm in (64, 128):
+            for bn in (64, 128):
+                if conv_lib.conv_mm_smem_bytes(bm, bn, flag) != conv_tiling.smem_bytes(bm, bn, dtype):
+                    raise AssertionError(f"conv_mm smem formula differs at tile "
+                                         f"{bm}x{bn} {dtype}")
     for l in (16, 32, 64, 96, 128, 256):
         for N, P in ((128, 64), (32, 32), (16, 8)):
             if ssd_lib.ssd_chunk_smem_bytes(l, N, P) != ssm_tiling.smem_bytes(l, N, P):
                 raise AssertionError(f"ssd smem formula differs at l={l} N={N} P={P}")
-    print("build shared-memory formulas of flash_attention and ssd_chunk: the "
-          "CUDA sources and the tiling models agree")
+    print("build shared-memory formulas of flash_attention, conv_mm and ssd_chunk: "
+          "the CUDA sources and the tiling models agree")
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<template arguments>`` of a mangled kernel symbol."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end():m.end() + int(m.group())]
+        if name.endswith("_kernel"):
+            rest = mangled[m.end() + len(name):]
+            args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) if rest[:1] == "I" else []
+            return f"{name}<{', '.join(args)}>" if args else name
+    return mangled
+
+
+def ptxas_kernels(log: str) -> list[tuple[str, int, int]]:
+    """(kernel instantiation, registers, spill-store bytes) for each entry
+    function in nvcc's ``-Xptxas -v`` output."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and name:
+            out.append((name, int(line.split("Used")[1].split("registers")[0]), spill))
+            name = None
+    return out
+
+
+def sass_mma_count(lib_path: str) -> dict | None:
+    """Tensor-core instructions (HGMMA, HMMA) in a library's SASS, from
+    ``cuobjdump -sass``; None where the tool is not available."""
+    import os
+    import shutil
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
+    if not tool:
+        return None
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return None
+    words = [line.split() for line in proc.stdout.splitlines()]
+    return {op: sum(any(w.startswith(op + ".") or w == op for w in ws) for ws in words)
+            for op in ("HGMMA", "HMMA")}
 
 
 def decode_case(dtype, Dh, cache_lens, seed=0, H=None, Hkv=None):
@@ -582,7 +638,17 @@ def tune_phase() -> dict:
         causal=True, dtype=T.DTYPE)
     decode = dict(prefill, Sq=1)
     ssd_tiling = autotune.get_tiling("ssm_scan")
+    # the f32 kernel's own config for the kernel phase's f32 check (bf16
+    # and f32 run different kernels, so their configs differ); its timing
+    # launches are counted apart, after the gate above
+    before, launched = tuner.timed, kernels["flash_attention"].tuner_launches
+    prefill_f32 = tuner.tune("flash_attention", dict(prefill, dtype="float32"))
+    print(f"tune flash_attention f32 prefill (for the kernel phase's f32 check): "
+          f"config {prefill_f32}, {tuner.timed - before} configs timed, "
+          f"{kernels['flash_attention'].tuner_launches - launched} tuner launches "
+          f"(not in the counts above)")
     return {"launches": counts,
+            "flash_prefill_f32": prefill_f32,
             "flash_prefill": tuner.tune("flash_attention", prefill),
             "flash_decode": tuner.tune("flash_attention", decode),
             "ssd_chunk": tuner.tune("ssm_scan", ssd_key)["chunk"],
@@ -620,10 +686,11 @@ def flash_check(gen, label, B, H, Hkv, Sq, Sk, Dh, dtype, *, causal=True,
 
 def flash_kernel_phase(flush, tuned: dict) -> dict:
     """flash attention against its plain version at the qwen3-4b prefill
-    shape (bf16 and f32, at the tuned config), a 512-query chunk at
-    q_offset 1024, decode (Sq = 1), S = 384 and fully masked rows; then
-    kernel, plain version and ``scaled_dot_product_attention`` timed at the
-    prefill shape."""
+    shape (bf16 and f32, each at its tuned config), a 512-query chunk at
+    q_offset 1024, decode (Sq = 1), S = 384, head dims 64 and 32 (bf16: each
+    head dim is its own tensor-core instantiation) and fully masked rows,
+    also with a ragged last K/V tile (Sk = 200); then kernel, plain version
+    and ``scaled_dot_product_attention`` timed at the prefill shape."""
     import torch
     import torch.nn.functional as F
 
@@ -635,8 +702,8 @@ def flash_kernel_phase(flush, tuned: dict) -> dict:
     pre, dec = tuned["flash_prefill"], tuned["flash_decode"]
     err, (q, k, v, _) = flash_check(gen, "qwen3-4b prefill (tuned)", B, H, Hkv, S, S,
                                     Dh, torch.bfloat16, **pre)
-    flash_check(gen, "qwen3-4b prefill (tuned)", B, H, Hkv, S, S, Dh,
-                torch.float32, **pre)
+    flash_check(gen, "qwen3-4b prefill (tuned for f32)", B, H, Hkv, S, S, Dh,
+                torch.float32, **tuned["flash_prefill_f32"])
     flash_check(gen, "qwen3-4b prefill (default blocks)", B, H, Hkv, S, S, Dh,
                 torch.bfloat16)
     flash_check(gen, "512-query chunk", B, H, Hkv, 512, S, Dh, torch.bfloat16,
@@ -647,16 +714,24 @@ def flash_kernel_phase(flush, tuned: dict) -> dict:
         flash_check(gen, "S=384", 2, H, Hkv, 384, 384, Dh, dtype)
     flash_check(gen, "bidirectional Dh=64", 2, 16, 4, 200, 300, 64, torch.float32,
                 causal=False, block_q=100, block_k=150)
-    _, (mq, mk, mv, mo) = flash_check(gen, "rows 0-3 fully masked", 1, H, Hkv, 64,
-                                      256, Dh, torch.float32, q_offset=-4,
-                                      block_q=64, block_k=64)
-    mean_err = float((mo[:, :, :4].float()
-                      - mv.repeat_interleave(H // Hkv, 1).float().mean(2, keepdim=True)
-                      ).abs().max())
-    print(f"kernel flash_attention fully masked rows against mean(V): "
-          f"max_abs_err={mean_err:.3e} (tol {FLASH_TOL['float32']})")
-    if not mean_err <= FLASH_TOL["float32"]:
-        raise AssertionError(f"fully masked rows are not mean(V): {mean_err}")
+    flash_check(gen, "bidirectional Dh=64", 2, 16, 4, 200, 300, 64, torch.bfloat16,
+                causal=False, block_q=100, block_k=150)
+    flash_check(gen, "Dh=32", 2, 8, 2, 256, 256, 32, torch.bfloat16, block_q=128,
+                block_k=64)
+    # fully masked rows (q_offset -4) return mean(V): Sk 256 fills whole
+    # tiles, Sk 200 leaves a ragged last tile whose missing keys weigh 0
+    masked = [("float32", 256), ("bfloat16", 200), ("float32", 200)]
+    for name, Sk in masked:
+        _, (mq, mk, mv, mo) = flash_check(gen, "rows 0-3 fully masked", 1, H, Hkv, 64,
+                                          Sk, Dh, getattr(torch, name), q_offset=-4,
+                                          block_q=64, block_k=64)
+        mean_err = float((mo[:, :, :4].float()
+                          - mv.repeat_interleave(H // Hkv, 1).float().mean(2, keepdim=True)
+                          ).abs().max())
+        print(f"kernel flash_attention fully masked rows Sk={Sk} {name} against "
+              f"mean(V): max_abs_err={mean_err:.3e} (tol {FLASH_TOL[name]})")
+        if not mean_err <= FLASH_TOL[name]:
+            raise AssertionError(f"fully masked rows are not mean(V): {mean_err}")
 
     kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
     lib_err = float((F.scaled_dot_product_attention(q, kr, vr, is_causal=True).float()
@@ -1107,7 +1182,7 @@ def cnn_step_breakdown(bs: int = 128, n_steps: int = 5) -> None:
     kernels = {e.key: e.self_device_time_total / 1e3 / n_steps
                for e in events if e.device_type == DeviceType.CUDA}
     dev_ms = sum(kernels.values())
-    conv = sum(t for k, t in kernels.items() if "conv_mm_kernel" in k)
+    conv = sum(t for k, t in kernels.items() if re.search(r"conv_mm_\w+_kernel", k))
     bwd = sum(e.device_time_total for e in events
               if e.key == "aten::convolution_backward") / 1e3 / n_steps
     if not dev_ms > 0:
@@ -1159,7 +1234,20 @@ def main() -> int:
         print(f"build {name} ({', '.join(str(s.relative_to(ROOT)) for s in sources)}): "
               f"nvcc {wrapper.build_seconds:.1f} s; ptxas: {ptxas_summary(log)}")
     print(f"build all kernels ready in {time.perf_counter() - t0:.1f} s")
-    check_smem_formulas(libs[2], libs[3])
+    for name, lib in (("conv_mm", libs[1]), ("flash_attention", libs[2])):
+        log = Path(lib._name).with_suffix(".log").read_text()
+        print(f"build {name} ptxas -v by instantiation: " + "; ".join(
+            f"{k} {regs} registers, {spill} bytes spilled" for k, regs, spill in ptxas_kernels(log)))
+    mma = sass_mma_count(libs[2]._name)
+    if mma is None:
+        print("build flash_attention SASS tensor-core instructions: not available "
+              "(no cuobjdump)")
+    else:
+        print(f"build flash_attention SASS tensor-core instructions (cuobjdump -sass): "
+              f"HGMMA {mma['HGMMA']}, HMMA {mma['HMMA']}")
+        if not mma["HGMMA"] + mma["HMMA"] > 0:
+            raise AssertionError("the flash attention library has no tensor-core instruction")
+    check_smem_formulas(libs[2], libs[3], libs[1])
 
     t0 = time.perf_counter()
     tuned = tune_phase()

@@ -26,9 +26,12 @@ keys byte-identical.  Under a CUDA spec (``h100``, or
   tiling model's docstring says) against ``SMEM_BYTES_PER_BLOCK`` =
   232,448 B, the most a Hopper block can opt into; ``explain()``'s
   ``vmem_kb`` and ``rejected_vmem`` then read shared memory;
-* the ``MXU_DIM`` underfill term is dropped: the port's kernels run f32
-  FMAs on the CUDA cores, whose rate does not depend on how wide a matmul
-  operand is (a tensor-core design would bring a term back);
+* the ``MXU_DIM`` underfill term is dropped.  The ranking does not model
+  the card's units: the f32 kernels run FMAs on the CUDA cores, whose rate
+  does not depend on how wide a matmul operand is, while bf16 flash
+  attention runs ``wgmma`` on the tensor cores in fixed 64-row,
+  64/128-key tiles that no config narrows below the instruction's
+  width (a tensor-core underfill term for narrow shapes is open work);
 * ``measure=None`` times on the card when CUDA is available:
   ``torch.cuda.synchronize`` around ``time.perf_counter``, the minimum of
   three calls after one warm call, as the reference times on a TPU.

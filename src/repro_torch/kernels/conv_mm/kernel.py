@@ -4,7 +4,9 @@ counter (port of ``repro/kernels/conv_mm/kernel.py``).
 The kernel itself is ``csrc/conv_mm.cu``; its header note says what it
 replaces, what bounds it and how it is laid out.  ``conv_mm_cuda`` builds
 the library at first use (:mod:`repro_torch.kernels.build`), checks its
-inputs, allocates the output and launches on PyTorch's current stream.
+inputs, picks the f32 kernel's tile (``tiling.conv_tile``) and its copy
+widths (16-byte copies of x where C % 4 == 0, of w where O % 4 == 0),
+allocates the output and launches on PyTorch's current stream.
 It takes CUDA tensors only: the plain version for CPU tensors is
 ``ref.conv_ref``, chosen by ``ops.conv_mm``.
 """
@@ -19,6 +21,7 @@ import torch
 from repro_torch.kernels.build import build_library
 
 from .ref import out_hw
+from .tiling import conv_tile
 
 __all__ = ["ConvMMKernel", "conv_mm_cuda", "SOURCES"]
 
@@ -40,8 +43,10 @@ class ConvMMKernel:
         if self._lib is None:
             lib, self.build_seconds = build_library("conv_mm", SOURCES)
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.conv_mm_launch.argtypes = [vp] * 3 + [i] * 12 + [vp]
+            lib.conv_mm_launch.argtypes = [vp] * 3 + [i] * 16 + [vp]
             lib.conv_mm_launch.restype = i
+            lib.conv_mm_smem_bytes.argtypes = [i, i, i]
+            lib.conv_mm_smem_bytes.restype = ctypes.c_longlong
             self._lib = lib
         return self._lib
 
@@ -74,6 +79,12 @@ class ConvMMKernel:
             raise ValueError(f"empty convolution: x={tuple(x.shape)} "
                              f"w={tuple(w.shape)} stride={stride} "
                              f"padding={padding}")
+        if max(x.numel(), w.numel(), N * OH * OW * O) >= 2**31:
+            raise ValueError("conv_mm_cuda takes tensors of fewer than 2^31 "
+                             "elements")
+        bm, bn = conv_tile(N * OH * OW, O)
+        vec_a = C % 4 == 0 and x.data_ptr() % 16 == 0
+        vec_b = O % 4 == 0 and w.data_ptr() % 16 == 0
         lib = self.load()
         y = torch.empty((N, OH, OW, O), dtype=x.dtype, device=x.device)
         with torch.cuda.device(x.device):
@@ -81,7 +92,7 @@ class ConvMMKernel:
             rc = lib.conv_mm_launch(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, C, KH, KW,
                 O, OH, OW, stride, padding, int(x.dtype == torch.bfloat16),
-                stream)
+                bm, bn, int(vec_a), int(vec_b), stream)
         if rc != 0:
             raise RuntimeError(f"conv_mm kernel launch failed (cudaError {rc})")
         self.launches += 1

@@ -6,9 +6,10 @@ the Hopper kernel (``kernel.conv_mm_cuda``), which launches or raises; a
 CPU or meta tensor goes to the plain version (``ref.conv_ref``).  There is
 no other switch: the reference's ``interpret=`` has no counterpart, and
 ``block_o`` is accepted for its signature but sets no tile: the CUDA
-kernel's 64 × 64 tile is fixed, so unlike the reference this wrapper does
-not consult the autotuner (there is nothing for a tuned ``block_o`` to
-set; ``tiling.py`` keeps the cost model, registered without a runner).
+kernel's tile follows a fixed rule on the GEMM's shape
+(``tiling.conv_tile``), so unlike the reference this wrapper does not
+consult the autotuner (there is nothing for a tuned ``block_o`` to set;
+``tiling.py`` keeps the cost model, registered without a runner).
 
 Gradients.  The reference's Pallas kernel has no gradient (no
 ``custom_vjp``, no backward kernel): its CNN takes convolution gradients

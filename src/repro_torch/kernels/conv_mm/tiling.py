@@ -4,11 +4,13 @@
 ``shape_key``, ``candidates``, ``default`` and ``cost`` are the
 reference's (grid (N, O/block_o), VMEM holding the padded image, a weight
 tile and the accumulator), so a TPU spec ranks them identically.  The
-model is registered **without a runner**: the CUDA kernel's 64 × 64 tile
-is fixed (see its source note), so ``block_o`` sets no tile on the card
-and timing its candidates would time identical launches.  Under a CUDA
-spec every config is legal (``smem_bytes`` is the fixed tile's), and
-``ops.conv_mm`` does not consult the tuner.
+model is registered **without a runner**: the CUDA kernel's tile is not
+``block_o`` but a fixed rule on the GEMM's shape (``conv_tile``), so
+``block_o`` sets nothing on the card and timing its candidates would time
+identical launches (and a runner inside the profiling grid would time
+configs inside Φ).  Under a CUDA spec every config is legal
+(``smem_bytes`` is the rule's tile's), and ``ops.conv_mm`` does not
+consult the tuner.
 """
 
 from __future__ import annotations
@@ -21,10 +23,36 @@ from repro_torch.kernels.autotune import (
     register_tiling,
 )
 
-__all__ = ["shape_key", "candidates", "default", "cost"]
+__all__ = ["shape_key", "candidates", "default", "cost", "conv_tile",
+           "smem_bytes", "NUM_SMS"]
 
-# csrc/conv_mm.cu: As[16][64 + 4] and Bs[16][64] f32, whatever block_o is
-_SMEM_BYTES = 4 * (16 * (64 + 4) + 16 * 64)
+# csrc/conv_mm.cu: the f32 kernel's K chunk and ring depth, and the bf16
+# kernel's static As[16][64 + 4] and Bs[16][64] f32 arrays
+_BK, _STAGES = 16, 3
+_BF16_SMEM = 4 * (16 * (64 + 4) + 16 * 64)
+NUM_SMS = 132                 # streaming multiprocessors of an H100 SXM
+
+
+def conv_tile(M: int, O: int) -> tuple[int, int]:
+    """(pixels, channels) of the f32 kernel's block tile for a GEMM of M
+    output pixels and O output channels: 64 channels where O ≤ 64 (a
+    128-wide tile would be half empty), and 64 pixels where 128-pixel
+    tiles would leave some of the card's SMs without a block (bs 2, or the
+    4 × 4 stage at small batch); else 128 × 128."""
+    bn = 64 if O <= 64 else 128
+    bm = 128 if -(-M // 128) * -(-O // bn) >= NUM_SMS else 64
+    return bm, bn
+
+
+def smem_bytes(bm: int, bn: int, dtype) -> int:
+    """Shared memory of one block of the CUDA kernel: for f32 a ring of 3
+    stages of a bm × 16 A tile and a 16 × bn B tile, f32; for bf16 the
+    fixed 64 × 64 kernel's static arrays.  The kernel computes the same
+    number (``conv_mm_smem_bytes``)."""
+    if str(dtype).removeprefix("torch.") == "bfloat16":
+        return _BF16_SMEM
+    return 4 * _STAGES * _BK * (bm + bn)
+
 
 _BLOCK_SEEDS = (8, 16, 32, 64, 128, 256, 512)
 
@@ -62,6 +90,7 @@ def cost(shape: dict, config: dict) -> KernelCost:
     bo = largest_dividing_block(O, config.get("block_o"))
     OH, OW, Hp, Wp = _geom(shape)
     bpe = bytes_per_element(shape["dtype"])
+    bm, bn = conv_tile(N * OH * OW, O)
     n_bo = O // bo
 
     flops = 2.0 * N * OH * OW * KH * KW * C * O
@@ -74,7 +103,7 @@ def cost(shape: dict, config: dict) -> KernelCost:
         flops=flops, hbm_bytes=hbm, vmem_bytes=vmem,
         n_steps=N * n_bo,
         mxu_min_dim=min(bo, C, OH * OW),
-        smem_bytes=_SMEM_BYTES,
+        smem_bytes=smem_bytes(bm, bn, shape["dtype"]),
     )
 
 

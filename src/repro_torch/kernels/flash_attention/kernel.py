@@ -6,9 +6,10 @@ it replaces, what bounds it and how it is laid out.  ``flash_attention_cuda``
 builds the library at first use (:mod:`repro_torch.kernels.build`), snaps
 the blocks as the reference does (``largest_dividing_block``: Sq = 384 with
 block_q 512 runs one 384-row block), checks its inputs, allocates the
-output and launches on PyTorch's current stream.  It takes CUDA tensors
-only: the plain version for CPU tensors is ``ref.attention_ref``, chosen by
-``ops.flash_attention``.
+output and launches on PyTorch's current stream.  The dtype picks the
+kernel in the one library: bf16 runs on the tensor cores, f32 on the CUDA
+cores.  It takes CUDA tensors only: the plain version for CPU tensors is
+``ref.attention_ref``, chosen by ``ops.flash_attention``.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ class FlashAttentionKernel:
             lib.flash_attention_launch.argtypes = (
                 [vp] * 4 + [i] * 10 + [ctypes.c_float, i, vp])
             lib.flash_attention_launch.restype = i
-            lib.flash_attention_smem_bytes.argtypes = [i, i]
+            lib.flash_attention_smem_bytes.argtypes = [i, i, i]
             lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
             self._lib = lib
         return self._lib
@@ -82,12 +83,16 @@ class FlashAttentionKernel:
                              f"divisible by Hkv)")
         if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
             raise ValueError("flash_attention_cuda takes contiguous tensors")
+        if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention_cuda takes 16-byte aligned bf16 "
+                             "tensors (TMA)")
         block_q = largest_dividing_block(Sq, block_q)
         block_k = largest_dividing_block(Sk, block_k)
-        if smem_bytes(Dh, block_k) > SMEM_BYTES_PER_BLOCK:
+        smem = smem_bytes(Dh, block_k, q.dtype)
+        if smem > SMEM_BYTES_PER_BLOCK:
             raise ValueError(
-                f"block_k={block_k} at Dh={Dh} needs {smem_bytes(Dh, block_k)} "
-                f"bytes of shared memory per block (> {SMEM_BYTES_PER_BLOCK})")
+                f"block_k={block_k} at Dh={Dh} needs {smem} bytes of shared "
+                f"memory per block (> {SMEM_BYTES_PER_BLOCK})")
         scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
         lib = self.load()
         out = torch.empty_like(q)

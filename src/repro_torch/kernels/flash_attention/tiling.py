@@ -5,17 +5,20 @@
 bytes, VMEM working set and step count are the reference's, so a TPU spec
 ranks them identically.  On top, ``cost`` reports ``smem_bytes``: the
 shared memory one block of the port's CUDA kernel (``csrc/
-flash_attention.cu``) takes at this config, which is what a CUDA spec
-budgets.  The tuner's two knobs map onto that kernel as follows:
+flash_attention.cu``) takes at this config and dtype, which is what a CUDA
+spec budgets.  The tuner's two knobs map onto that kernel as follows:
 
 * ``block_q`` — query rows per block (grid = B × H × Sq/block_q); the
-  block walks them in passes of 64 rows, so it sets parallelism and K/V
-  reuse, not shared memory;
-* ``block_k`` — keys per online-softmax step: the block keeps a
-  64 × block_k f32 score strip in shared memory and rescales its
-  accumulator once per step.  A wide step does not fit: at Dh 128,
-  block_k 1024 needs 329,216 B, so under a CUDA spec the tuner rejects it
-  (``smem_bytes`` > 232,448 B) and every config it can return launches.
+  block walks them in passes (128 rows for bf16, 64 for f32), so it sets
+  parallelism and K/V reuse, not shared memory;
+* ``block_k`` — for bf16 inputs (tensor cores) the K/V tile of one ring
+  stage, ``kv_tile(block_k)`` = 64 keys for block_k ≤ 64, else 128 (the
+  widest tile whose two stages of K and V fit beside the Q pass at Dh
+  128), so every bf16 config fits; for f32 inputs (CUDA cores) the keys
+  per online-softmax step, a 64 × block_k f32 score strip in shared
+  memory, which does not fit at block_k 1024 and Dh 128 (329,216 B), so
+  under a CUDA spec the tuner rejects it (``smem_bytes`` > 232,448 B) and
+  every config it can return launches.
 """
 
 from __future__ import annotations
@@ -29,22 +32,34 @@ from repro_torch.kernels.autotune import (
 )
 
 __all__ = ["shape_key", "candidates", "cost", "default", "smem_bytes",
-           "ROWS_PER_PASS", "KEYS_PER_STAGE"]
+           "kv_tile"]
 
 _BLOCK_SEEDS = (64, 128, 256, 512, 1024)
 
-# The CUDA kernel's own tile (csrc/flash_attention.cu: kRows, kKeys).
-ROWS_PER_PASS = 64
-KEYS_PER_STAGE = 64
+# The CUDA kernel's own tiles (csrc/flash_attention.cu).
+_F32_ROWS, _F32_KEYS = 64, 64          # f32: rows per pass, keys per K/V stage
+_BF16_ROWS, _BF16_STAGES = 128, 2      # bf16: rows per pass, K/V ring depth
 
 
-def smem_bytes(Dh: int, block_k: int) -> int:
-    """Shared memory of one block of the CUDA kernel: the q pass and one
-    K/V stage (64 rows × (Dh + 1) f32 each), the score strip
-    (64 × (block_k + 1) f32) and three f32 row statistics.  The kernel
-    computes the same number (``flash_attention_smem_bytes``)."""
-    floats = (ROWS_PER_PASS * (Dh + 1) + KEYS_PER_STAGE * (Dh + 1)
-              + ROWS_PER_PASS * (block_k + 1) + 3 * ROWS_PER_PASS)
+def kv_tile(block_k: int) -> int:
+    """Keys in one ring stage of the bf16 kernel (``kv_tile`` there)."""
+    return 64 if block_k <= 64 else 128
+
+
+def smem_bytes(Dh: int, block_k: int, dtype) -> int:
+    """Shared memory of one block of the CUDA kernel, in bytes.
+
+    bf16: 1024 B of alignment slack for the swizzled tiles, the Q pass
+    (128 × Dh), two stages of K and V tiles (``kv_tile(block_k)`` × Dh),
+    all bf16, and 128 B of mbarriers.  f32: the q pass and one K/V stage
+    (64 rows × (Dh + 1) f32 each), the score strip (64 × (block_k + 1)
+    f32) and three f32 row statistics.  The kernel computes the same
+    number (``flash_attention_smem_bytes``)."""
+    if str(dtype).removeprefix("torch.") == "bfloat16":
+        return (1024 + 2 * (_BF16_ROWS * Dh + 2 * _BF16_STAGES * kv_tile(block_k) * Dh)
+                + 128)
+    floats = (_F32_ROWS * (Dh + 1) + _F32_KEYS * (Dh + 1)
+              + _F32_ROWS * (block_k + 1) + 3 * _F32_ROWS)
     return 4 * floats
 
 
@@ -91,7 +106,7 @@ def cost(shape: dict, config: dict) -> KernelCost:
         flops=flops, hbm_bytes=hbm, vmem_bytes=vmem,
         n_steps=n_programs * (1 + Sk // bk),
         mxu_min_dim=min(bq, bk, Dh),
-        smem_bytes=smem_bytes(Dh, bk),
+        smem_bytes=smem_bytes(Dh, bk, shape["dtype"]),
     )
 
 

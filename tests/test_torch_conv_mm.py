@@ -139,3 +139,40 @@ def test_tiling_matches_reference(spec):
     assert mine == ref
     assert tiling.default(mine) == jax_tiling.default(ref)
     assert tiling.candidates(mine) == jax_tiling.candidates(ref)
+
+
+@pytest.mark.parametrize("M,O,tile", [
+    (128 * 32 * 32, 64, (128, 64)),     # bs 128, 32x32, O 64: the stem
+    (128 * 4 * 4, 512, (64, 128)),      # bs 128, the 4x4 stage: 64 tiles of 128
+    (128 * 4 * 4, 2048, (128, 128)),    # 256 tiles of 128 x 128
+    (2 * 32 * 32, 64, (64, 64)),        # bs 2
+    (132 * 128, 128, (128, 128)),       # exactly one 128 x 128 tile per SM
+    (131 * 128, 128, (64, 128)),        # one SM short
+    (131 * 128, 65, (64, 128)),         # O 65 takes the 128-wide tile
+    (1, 1, (64, 64)),
+])
+def test_conv_tile_rule(M, O, tile):
+    """The f32 kernel's tile: 64 channels where O <= 64, 64 pixels where
+    128-pixel tiles would leave some of the 132 SMs without a block."""
+    assert tiling.NUM_SMS == 132
+    assert tiling.conv_tile(M, O) == tile
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tile", [(64, 64), (64, 128), (128, 64), (128, 128)])
+def test_smem_bytes_formula(tile, dtype):
+    """Shared memory of one block of the CUDA kernel (``conv_mm_smem_bytes``
+    in the source): f32, a ring of 3 stages of a bm x 16 A tile and a
+    16 x bn B tile; bf16, the fixed 64 x 64 kernel's static 16 x 68 and
+    16 x 64 f32 arrays.  ``cost`` reports the rule's tile's."""
+    bm, bn = tile
+    want = 4 * 3 * 16 * (bm + bn) if dtype == "float32" else 4 * (16 * 68 + 16 * 64)
+    assert tiling.smem_bytes(bm, bn, dtype) == want
+    assert tiling.smem_bytes(bm, bn, TORCH_DT[dtype]) == want
+    # a shape the rule gives this tile: N x 32 x 32 pixels, O channels
+    N = 128 if bm == 128 else 2
+    O = 64 if bn == 64 else 256
+    shape = tiling.shape_key((N, 32, 32, 64), (3, 3, 64, O), stride=1, padding=1,
+                             dtype=TORCH_DT[dtype])
+    assert tiling.conv_tile(N * 32 * 32, O) == tile
+    assert tiling.cost(shape, tiling.default(shape)).smem_bytes == want
