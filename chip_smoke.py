@@ -9,11 +9,11 @@ Phases (any failure raises and the script exits non-zero):
    CUDA versions;
 2. build — compile every CUDA kernel from the sources in this checkout,
    one ``nvcc`` per kernel, all started together (→ ``build/repro_torch/``);
-   print ``-Xptxas -v`` (registers, spills) for each instantiation of the
-   flash attention and convolution kernels and the count of tensor-core
-   instructions (HGMMA, HMMA) in the flash library's SASS
-   (``cuobjdump -sass``), which must not be 0; hold the shared memory the
-   tiling models report against the sources' own formulas;
+   print ``-Xptxas -v`` (registers, spills) for each kernel instantiation
+   and the count of tensor-core instructions (HGMMA, HMMA) in the SASS
+   (``cuobjdump -sass``) of the paged decode, flash attention and SSD
+   libraries, none of which may be 0; hold the shared memory the tiling
+   models report against the sources' own formulas, all four kernels;
 3. tune — the kernel autotuner on the card: a ``KernelTuner`` for this
    card (``from_torch_device``, ``measure=True``) on a fresh cache
    installed as the process default; ``warm_autotune`` for full-width
@@ -24,13 +24,16 @@ Phases (any failure raises and the script exits non-zero):
    entry is printed, and each kernel's launches during the phase must
    equal four per timed config (one warm call, three timed);
 4. kernels — hold each kernel against its plain PyTorch version on the
-   card: paged decode at qwen3-4b decode shapes, the MM convolution on
+   card: paged decode at qwen3-4b decode shapes (bf16 at head dims 64 and
+   128, rep 1, 4, 5 and 8, every token tile that fits and 1, 2, 4 and 8
+   splits, each at the cache_len edges; f32), the MM convolution on
    every convolution shape of full-width ResNet-50 and on edge cases,
    flash attention at the qwen3-4b prefill shape and edge cases (fully
    masked rows against mean(V), also over a ragged last tile), the SSD
    intra-chunk pass at the mamba2-780m shape for every chunk the tuner may
-   return; time kernel, plain version, a library yardstick and the bound
-   with CUDA events;
+   return, in f32 and with bf16 inputs; time kernel, plain version, a
+   library yardstick and the bound with CUDA events (paged decode also at
+   each token tile and split);
 5. serve — full-width qwen3-4b (random weights from seed 0, bf16) served
    by ``ContinuousEngine`` over the paged KV pool: 16 greedy requests,
    with the paged-decode launch count read around the run; then the
@@ -141,11 +144,12 @@ def ptxas_summary(log: str) -> str:
             f"{sum(x > 0 for x in spills)} with spills (max {max(spills)} bytes)")
 
 
-def check_smem_formulas(flash_lib, ssd_lib, conv_lib) -> None:
+def check_smem_formulas(flash_lib, ssd_lib, conv_lib, decode_lib) -> None:
     """The shared-memory sizes the tiling models report (what the tuner
     budgets) equal the ones the CUDA sources compute and launch with."""
     from repro_torch.kernels.conv_mm import tiling as conv_tiling
     from repro_torch.kernels.flash_attention import tiling as flash_tiling
+    from repro_torch.kernels.paged_decode import tiling as pd_tiling
     from repro_torch.kernels.ssm_scan import tiling as ssm_tiling
 
     for dtype, flag in (("bfloat16", 1), ("float32", 0)):
@@ -160,12 +164,23 @@ def check_smem_formulas(flash_lib, ssd_lib, conv_lib) -> None:
                 if conv_lib.conv_mm_smem_bytes(bm, bn, flag) != conv_tiling.smem_bytes(bm, bn, dtype):
                     raise AssertionError(f"conv_mm smem formula differs at tile "
                                          f"{bm}x{bn} {dtype}")
-    for l in (16, 32, 64, 96, 128, 256):
-        for N, P in ((128, 64), (32, 32), (16, 8)):
+    for l in (16, 32, 64, 96, 100, 128, 256):
+        for N, P in ((128, 64), (32, 32), (16, 8), (100, 50)):
             if ssd_lib.ssd_chunk_smem_bytes(l, N, P) != ssm_tiling.smem_bytes(l, N, P):
                 raise AssertionError(f"ssd smem formula differs at l={l} N={N} P={P}")
-    print("build shared-memory formulas of flash_attention, conv_mm and ssd_chunk: "
-          "the CUDA sources and the tiling models agree")
+    types = {"bfloat16": 1, "float32": 0}
+    for q_dt, q_flag in types.items():
+        for kv_dt, kv_flag in types.items():
+            for Dh in (64, 128):
+                for rep in (1, 2, 4, 5, 8, 16):
+                    for bkv in (1, 8, 12, 16, 32, 64, 100, 128, 256, 512):
+                        if (decode_lib.paged_decode_smem_bytes(Dh, rep, bkv, q_flag, kv_flag)
+                                != pd_tiling.smem_bytes(Dh, rep, bkv, q_dt, kv_dt)):
+                            raise AssertionError(
+                                f"paged_decode smem formula differs at Dh={Dh} rep={rep} "
+                                f"block_kv={bkv} q {q_dt} kv {kv_dt}")
+    print("build shared-memory formulas of flash_attention, conv_mm, ssd_chunk and "
+          "paged_decode: the CUDA sources and the tiling models agree")
 
 
 def kernel_name(mangled: str) -> str:
@@ -259,64 +274,87 @@ def library_decode(q, kp, vp, bt, cl):
     return o.reshape(B, H, Dh)
 
 
+def decode_check(label, args, want, **kw) -> float:
+    """paged decode against its plain version on the same card inputs;
+    raises outside ``TOL``, else returns the max abs error."""
+    import torch
+
+    from repro_torch.kernels.paged_decode.kernel import paged_decode_cuda
+
+    got = paged_decode_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    name = str(got.dtype).removeprefix("torch.")
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"paged_decode output bad at {label} {kw}")
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= TOL[name]:
+        raise AssertionError(f"paged_decode disagrees at {label} {kw}: {err}")
+    return err
+
+
 def kernel_phase(flush) -> dict:
     import torch
 
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.paged_decode import tiling as pd_tiling
     from repro_torch.kernels.paged_decode.kernel import paged_decode_cuda
     from repro_torch.kernels.paged_decode.ref import paged_decode_ref
 
     bs, NB = DECODE["bs"], DECODE["NB"]
     edges = [0, bs - 1, bs, 2 * bs - 1, 3 * bs, 5 * bs + 17, NB * bs - 1, 700]
+    # bf16 q and pools run the tensor-core kernel: every token tile the tuner
+    # may return (the candidates whose ring fits), every split, rep 1, 4, 5, 8
     for Dh in (128, 64):
-        for name, dtype in (("bfloat16", torch.bfloat16),
-                            ("float32", torch.float32)):
-            args = decode_case(dtype, Dh, edges)
+        for H, Hkv in ((32, 32), (32, 8), (40, 8), (32, 4)):      # rep 1, 4, 5, 8
+            shape = pd_tiling.shape_key(DECODE["B"], H, Hkv, Dh, NB, bs, "bfloat16")
+            tiles = sorted({c["block_kv"] for c in pd_tiling.candidates(shape)
+                            if autotune.smem_ok(pd_tiling.cost(shape, c))})
+            args = decode_case(torch.bfloat16, Dh, edges, H=H, Hkv=Hkv)
             want = paged_decode_ref(*args)
-            for ns in (1, 2, 4):
-                got = paged_decode_cuda(*args, n_splits=ns)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                print(f"kernel paged_decode Dh={Dh} {name} n_splits={ns}: "
-                      f"max_abs_err={err:.3e} (tol {TOL[name]})")
-                if not err <= TOL[name]:
-                    raise AssertionError(f"paged_decode disagrees: {err}")
-    for H, Hkv in ((32, 32), (32, 4), (40, 8)):      # rep 1, 8 (two passes), 5
-        args = decode_case(torch.bfloat16, 128, edges, H=H, Hkv=Hkv)
-        err = float((paged_decode_cuda(*args).float()
-                     - paged_decode_ref(*args).float()).abs().max())
-        print(f"kernel paged_decode Dh=128 bfloat16 H={H} Hkv={Hkv}: "
-              f"max_abs_err={err:.3e} (tol {TOL['bfloat16']})")
-        if not err <= TOL["bfloat16"]:
-            raise AssertionError(f"paged_decode disagrees: {err}")
+            err = max(decode_check(f"Dh={Dh} H={H} Hkv={Hkv} bf16", args, want,
+                                   block_kv=bkv, n_splits=ns)
+                      for bkv in tiles for ns in (1, 2, 4, 8))
+            print(f"kernel paged_decode Dh={Dh} bfloat16 H={H} Hkv={Hkv} (rep {H // Hkv}) "
+                  f"at block_kv {tiles} x n_splits [1, 2, 4, 8]: max_abs_err={err:.3e} "
+                  f"(tol {TOL['bfloat16']})")
+    # f32 q and pools: the CUDA-core kernel
+    for Dh in (128, 64):
+        args = decode_case(torch.float32, Dh, edges)
+        want = paged_decode_ref(*args)
+        for ns in (1, 2, 4):
+            err = decode_check(f"Dh={Dh} f32", args, want, n_splits=ns)
+            print(f"kernel paged_decode Dh={Dh} float32 n_splits={ns}: "
+                  f"max_abs_err={err:.3e} (tol {TOL['float32']})")
 
     # timing at the serving shape: bf16, ragged fills drawn like the served
-    # requests (prompt 64..1536 + 16 generated), at the n_splits the tune
-    # phase picked for this shape (what serving launches) and at 1, 2, 4, 8
-    from repro_torch.kernels import autotune
-    from repro_torch.kernels.paged_decode import tiling as pd_tiling
-
-    tuned_ns = autotune.get_tuner().tune("paged_decode", pd_tiling.shape_key(
-        DECODE["B"], DECODE["H"], DECODE["Hkv"], DECODE["Dh"], NB, bs,
-        "bfloat16"))["n_splits"]
+    # requests (prompt 64..1536 + 16 generated), at the config the tune phase
+    # picked for this shape (what serving launches) and at each token tile
+    # and split
+    shape = pd_tiling.shape_key(DECODE["B"], DECODE["H"], DECODE["Hkv"], DECODE["Dh"],
+                                NB, bs, "bfloat16")
+    tuned = autotune.get_tuner().tune("paged_decode", shape)
     fills = np.random.default_rng(1).integers(64, 1537, DECODE["B"]) + 16
     args = decode_case(torch.bfloat16, DECODE["Dh"], fills.tolist(), seed=1)
     lib_err = float((library_decode(*args).float()
                      - paged_decode_ref(*args).float()).abs().max())
-    ms = time_ms(lambda: paged_decode_cuda(*args, n_splits=tuned_ns), flush)
+    ms = time_ms(lambda: paged_decode_cuda(*args, **tuned), flush)
     plain_ms = time_ms(lambda: paged_decode_ref(*args), flush)
     library_ms = time_ms(lambda: library_decode(*args), flush)
-    ms_again = time_ms(lambda: paged_decode_cuda(*args, n_splits=tuned_ns), flush)
+    ms_again = time_ms(lambda: paged_decode_cuda(*args, **tuned), flush)
     bound_ms, bound_by = bound(args[0], args[1], args[4])
     live = int((args[4].long() + 1).sum())
     print(f"timing paged_decode B=8 H=32 Hkv=8 Dh=128 bs=256 NB=8 bf16 "
-          f"live_tokens={live} at the tuned n_splits={tuned_ns}: kernel {ms:.4f} / "
+          f"live_tokens={live} at the tuned {tuned}: kernel {ms:.4f} / "
           f"{ms_again:.4f} ms, plain {plain_ms:.4f} ms, gather+sdpa {library_ms:.4f} ms "
           f"(max_abs_err vs plain {lib_err:.3e}), bound {bound_ms:.4f} ms "
           f"({bound_by}) -> {bound_ms / ms:.1%} of bound")
-    splits = {ns: time_ms(lambda: paged_decode_cuda(*args, n_splits=ns), flush)
-              for ns in (1, 2, 4, 8)}
-    print("timing paged_decode same inputs by n_splits: " + ", ".join(
-        f"{ns}: {t:.4f} ms" for ns, t in splits.items()))
+    tiles = sorted({c["block_kv"] for c in pd_tiling.candidates(shape)
+                    if autotune.smem_ok(pd_tiling.cost(shape, c))})
+    for bkv in tiles:
+        splits = {ns: time_ms(lambda: paged_decode_cuda(*args, block_kv=bkv, n_splits=ns),
+                              flush) for ns in (1, 2, 4, 8)}
+        print(f"timing paged_decode same inputs, block_kv={bkv}, by n_splits: " + ", ".join(
+            f"{ns}: {t:.4f} ms" for ns, t in splits.items()))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -459,12 +497,15 @@ def decode_breakdown(cfg, params, scfg, prompts, n_steps: int = 8) -> None:
         t = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t / 1e3 / n_steps
     dev_ms = sum(by_kernel.values())
-    paged = sum(t for k, t in by_kernel.items() if "paged_decode_kernel" in k)
+    # the tensor-core kernel (bf16) or the CUDA-core one, and the split merge
+    paged = sum(t for k, t in by_kernel.items() if re.search(r"paged_decode_\w*kernel", k))
+    merge = sum(t for k, t in by_kernel.items() if "combine_splits_kernel" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     print(f"decode step, 8 slots at ~256-280 tokens of context: host wall "
           f"{wall_ms:.2f} ms/step, device kernel time {dev_ms:.2f} ms/step "
           f"(device idle {1 - dev_ms / wall_ms:.1%}), paged_decode "
-          f"{paged:.3f} ms/step ({paged / dev_ms:.1%} of kernel time); the "
+          f"{paged:.3f} ms/step ({paged / dev_ms:.1%} of kernel time) + its split "
+          f"merge {merge:.3f} ms/step; the "
           f"n_splits lookup (a tuner memo hit) {lookup_us:.1f} us on the host, "
           f"{lookup_us * cfg.n_layers / 1e3:.3f} ms/step over {cfg.n_layers} layers")
     print("decode step top kernels (ms/step): " + "; ".join(
@@ -760,8 +801,8 @@ def ssd_kernel_phase(flush, tuned: dict) -> dict:
     """The SSD intra-chunk kernel against its plain version at the
     mamba2-780m shape (f32) for every chunk the tuner may return, and the
     whole op (kernel + recurrence) against ``ssd_ref`` with an initial
-    state and split in two halves; then kernel and plain version timed at
-    the tuned chunk."""
+    state and split in two halves; the same with bf16 inputs; then kernel
+    and plain version timed at the tuned chunk."""
     import torch
 
     from repro_torch.kernels.ssm_scan.kernel import ssd_chunk_cuda
@@ -802,6 +843,31 @@ def ssd_kernel_phase(flush, tuned: dict) -> dict:
             raise AssertionError(f"ssd_chunk disagrees at chunk {ch}")
         if ch == tuned["ssd_chunk"]:
             worst = max(errs)
+
+    # bf16 x, B and C (converted to f32 on load, the same 3xTF32 path): the f32
+    # outputs, and the op's final state, within SSD_TOL of the plain version on
+    # the same inputs; y_diag rounds to bf16 on both sides, so it may land one
+    # bf16 ulp (<= 2^-7 |y|) apart
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (xh, Bm, Cm))
+    for ch in tuned["ssd_chunks"]:
+        got = ssd_chunk_cuda(xb, a, Bb, Cb, chunk=ch)
+        want = ssd_chunk_ref(xb, a, Bb, Cb, chunk=ch)
+        _, st = ssd(xb, a, Bb, Cb, chunk=ch, initial_state=s0)
+        _, st_ref = ssd_ref(xb, a, Bb, Cb, chunk=ch, initial_state=s0)
+        torch.cuda.synchronize()
+        if not (got[0].dtype == torch.bfloat16
+                and all(torch.isfinite(t).all() for t in (*got, st))):
+            raise AssertionError(f"ssd bf16 output bad at chunk {ch}")
+        errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+        y_excess = float(((got[0].float() - want[0].float()).abs()
+                          - 2.0 ** -7 * want[0].float().abs()).max())
+        st_err = float((st - st_ref).abs().max())
+        print(f"kernel ssd_chunk B={B} S={S} H={H} P={P} N={N} bf16 inputs chunk={ch}: "
+              f"max_abs_err states {errs[1]:.3e} decay {errs[2]:.3e} cum {errs[3]:.3e}, "
+              f"ssd op final state vs ssd_ref {st_err:.3e}; y_diag {errs[0]:.3e}, "
+              f"beyond one bf16 ulp {y_excess:.3e} (tol {SSD_TOL})")
+        if not max(*errs[1:], st_err, y_excess) <= SSD_TOL:
+            raise AssertionError(f"ssd_chunk with bf16 inputs disagrees at chunk {ch}")
 
     ch = tuned["ssd_chunk"]
     ms = time_ms(lambda: ssd_chunk_cuda(xh, a, Bm, Cm, chunk=ch), flush, 20, 3)
@@ -1234,20 +1300,23 @@ def main() -> int:
         print(f"build {name} ({', '.join(str(s.relative_to(ROOT)) for s in sources)}): "
               f"nvcc {wrapper.build_seconds:.1f} s; ptxas: {ptxas_summary(log)}")
     print(f"build all kernels ready in {time.perf_counter() - t0:.1f} s")
-    for name, lib in (("conv_mm", libs[1]), ("flash_attention", libs[2])):
+    for name, lib in zip(wrappers, libs):
         log = Path(lib._name).with_suffix(".log").read_text()
         print(f"build {name} ptxas -v by instantiation: " + "; ".join(
             f"{k} {regs} registers, {spill} bytes spilled" for k, regs, spill in ptxas_kernels(log)))
-    mma = sass_mma_count(libs[2]._name)
-    if mma is None:
-        print("build flash_attention SASS tensor-core instructions: not available "
-              "(no cuobjdump)")
-    else:
-        print(f"build flash_attention SASS tensor-core instructions (cuobjdump -sass): "
+    # the tensor-core kernels: bf16 paged decode and flash, ssd_chunk (3xTF32)
+    for name, lib in zip(wrappers, libs):
+        if name == "conv_mm":
+            continue
+        mma = sass_mma_count(lib._name)
+        if mma is None:
+            print(f"build {name} SASS tensor-core instructions: not available (no cuobjdump)")
+            continue
+        print(f"build {name} SASS tensor-core instructions (cuobjdump -sass): "
               f"HGMMA {mma['HGMMA']}, HMMA {mma['HMMA']}")
         if not mma["HGMMA"] + mma["HMMA"] > 0:
-            raise AssertionError("the flash attention library has no tensor-core instruction")
-    check_smem_formulas(libs[2], libs[3], libs[1])
+            raise AssertionError(f"the {name} library has no tensor-core instruction")
+    check_smem_formulas(libs[2], libs[3], libs[1], libs[0])
 
     t0 = time.perf_counter()
     tuned = tune_phase()

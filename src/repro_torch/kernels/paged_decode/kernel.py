@@ -18,8 +18,12 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.autotune import timing_launches
+from repro_torch.kernels.autotune import (SMEM_BYTES_PER_BLOCK,
+                                          largest_dividing_block,
+                                          timing_launches)
 from repro_torch.kernels.build import build_library
+
+from .tiling import smem_bytes
 
 __all__ = ["PagedDecodeKernel", "paged_decode_cuda", "SOURCES"]
 
@@ -33,21 +37,25 @@ class PagedDecodeKernel:
     """Callable wrapper around the CUDA kernel.  ``launches`` counts the
     calls that launched it (one per call, the split combine included);
     launches made while the autotuner times a config count in
-    ``tuner_launches`` instead."""
+    ``tuner_launches`` instead.  ``name`` and ``sources`` pick the library
+    (another build of the same C interface, e.g. a variant of the source)."""
 
-    def __init__(self):
+    def __init__(self, name: str = "paged_decode", sources: list[Path] = SOURCES):
         self.launches = 0
         self.tuner_launches = 0
         self._lib = None
         self.build_seconds = 0.0
+        self.name, self.sources = name, sources
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib, self.build_seconds = build_library("paged_decode", SOURCES)
+            lib, self.build_seconds = build_library(self.name, self.sources)
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.paged_decode_launch.argtypes = (
-                [vp] * 9 + [i] * 7 + [ctypes.c_float, i, i, vp])
+                [vp] * 9 + [i] * 8 + [ctypes.c_float, i, i, vp])
             lib.paged_decode_launch.restype = i
+            lib.paged_decode_smem_bytes.argtypes = [i] * 5
+            lib.paged_decode_smem_bytes.restype = ctypes.c_longlong
             self._lib = lib
         return self._lib
 
@@ -56,9 +64,11 @@ class PagedDecodeKernel:
                  n_splits: int = 1) -> torch.Tensor:
         """q: (B, H, Dh); k/v_pool: (P, bs, Hkv, Dh); block_table: (B, NB)
         int32; cache_len: (B,) int32 → (B, H, Dh) in q's dtype, attending
-        logical positions ``<= cache_len[b]``.  ``block_kv`` is accepted
-        for the reference's signature and sets no tile (see the source
-        note); ``n_splits`` cuts the KV axis into that many blocks."""
+        logical positions ``<= cache_len[b]``.  ``block_kv`` is the token
+        tile of the tensor-core kernel (bf16 q and pools), snapped to the
+        largest divisor of bs ≤ the request (None: 128); the CUDA-core
+        kernel of the other types sets no tile from it.  ``n_splits`` cuts
+        the KV axis into that many blocks."""
         B, H, Dh = q.shape
         P, bs, Hkv, Dh_k = k_pool.shape
         NB = block_table.shape[1]
@@ -82,9 +92,15 @@ class PagedDecodeKernel:
                 f"pool={tuple(k_pool.shape)} table={tuple(block_table.shape)} "
                 f"cache_len={tuple(cache_len.shape)} (Dh in {_HEAD_DIMS}, "
                 f"H divisible by Hkv)")
-        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-            raise ValueError("pools must be 16-byte aligned")
+        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16 or q.data_ptr() % 4:
+            raise ValueError("pools must be 16-byte aligned and q 4-byte aligned")
         rep = H // Hkv
+        bkv = largest_dividing_block(bs, block_kv or 128)
+        smem = smem_bytes(Dh, rep, bkv, q.dtype, k_pool.dtype)
+        if smem > SMEM_BYTES_PER_BLOCK:
+            raise ValueError(
+                f"block_kv={bkv} at Dh={Dh} needs {smem} bytes of shared "
+                f"memory per block (> {SMEM_BYTES_PER_BLOCK})")
         scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
         n_splits = max(1, min(int(n_splits), NB))
         lib = self.load()
@@ -104,7 +120,7 @@ class PagedDecodeKernel:
             rc = lib.paged_decode_launch(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 block_table.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-                *parts, B, H, Hkv, Dh, bs, NB, n_splits, float(scale),
+                *parts, B, H, Hkv, Dh, bs, NB, n_splits, bkv, float(scale),
                 int(q.dtype == torch.bfloat16),
                 int(k_pool.dtype == torch.bfloat16), stream)
         if rc != 0:

@@ -9,8 +9,8 @@ no other switch: the JAX package's ``impl=`` argument and its
 
 ``block_kv=None`` / ``n_splits=None`` consult the process autotuner for
 this launch shape, as in the reference (``ops.py:63``); explicit values
-always win.  ``block_kv`` is passed through: the CUDA kernel sets no tile
-from it (see its source note).
+always win.  ``block_kv`` is the token tile of the tensor-core kernel
+that bf16 q and pools run (see its source note).
 """
 
 from __future__ import annotations

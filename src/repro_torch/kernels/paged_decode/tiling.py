@@ -8,12 +8,14 @@ are the reference's: costs at the pool's steady state (rows half full,
 ``_MEGACORE`` is the reference's TPU constant (two TensorCores sharing
 HBM); it stays, since it is part of the cost every spec ranks by.
 
-On the card: the CUDA kernel (``csrc/paged_decode.cu``) splits the KV
-axis into ``n_splits`` blocks of its grid, which the tuner times through
-``_runner``; ``block_kv`` sets no tile there, so configs that differ only
-in ``block_kv`` launch the same kernel.  ``cost`` reports the kernel's
-static shared memory (``smem_bytes``), which no config changes, so every
-config is legal under a CUDA spec.
+On the card (``csrc/paged_decode.cu``), the tuner times each config
+through ``_runner``: ``n_splits`` cuts the KV axis into that many blocks
+of the grid, and for bf16 q and pools ``block_kv`` is the tensor-core
+kernel's token tile, streamed through a ring of three shared-memory
+stages.  ``cost`` reports that ring as ``smem_bytes``, so under a CUDA
+spec the tuner rejects a tile the ring cannot hold (256 tokens at Dh
+128).  Other types run a CUDA-core kernel whose static shared memory no
+config changes.
 """
 
 from __future__ import annotations
@@ -44,11 +46,25 @@ def shape_key(B, H, Hkv, Dh, NB, bs, dtype) -> dict:
             "dtype": str(dtype).removeprefix("torch.")}
 
 
-def smem_bytes(H: int, Hkv: int, Dh: int) -> int:
-    """Static shared memory of one block of the CUDA kernel
-    (csrc/paged_decode.cu: q_s, acc_s, m_s, l_s over ROWS = 1, 2 or 4 query
-    rows and 8 warps); block_kv and n_splits do not change it."""
-    rep = H // Hkv
+_STAGES = 3          # csrc/paged_decode.cu: kStages
+_MAX_REP = 8         # csrc/paged_decode.cu: kMaxRep
+
+
+def smem_bytes(Dh: int, rep: int, block_kv: int, dtype, kv_dtype=None) -> int:
+    """Shared memory of one block of the CUDA kernel at this tile; the
+    kernel computes the same number (``paged_decode_smem_bytes``).  bf16 q
+    and pools (``kv_dtype`` defaults to ``dtype``) with rep <= 8 take the
+    tensor-core kernel: a ring of 3 stages of K and V tiles of ``block_kv``
+    tokens rounded up to a power of two >= 16, in bf16.  Other types take
+    the CUDA-core kernel's static arrays (q_s, acc_s, m_s, l_s over ROWS =
+    1, 2 or 4 query rows and 8 warps), which block_kv does not change."""
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
+    bf16 = [str(d).removeprefix("torch.") == "bfloat16" for d in (dtype, kv_dtype)]
+    if all(bf16) and rep <= _MAX_REP:
+        tile = 16
+        while tile < block_kv:
+            tile *= 2
+        return _STAGES * 2 * tile * Dh * 2
     rows = 1 if rep == 1 else 2 if rep == 2 else 4
     return 4 * rows * (9 * Dh + 16)
 
@@ -103,7 +119,7 @@ def cost(shape: dict, config: dict) -> KernelCost:
         flops=flops, hbm_bytes=hbm, vmem_bytes=vmem,
         n_steps=int(max(n_steps, 1)),
         mxu_min_dim=min(rep, bkv, Dh),
-        smem_bytes=smem_bytes(H, Hkv, Dh),
+        smem_bytes=smem_bytes(Dh, rep, bkv, shape["dtype"]),
     )
 
 

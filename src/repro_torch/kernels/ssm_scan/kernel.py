@@ -31,17 +31,20 @@ _DTYPES = (torch.float32, torch.bfloat16)
 class SsdChunkKernel:
     """Callable wrapper around the CUDA kernel.  ``launches`` counts the
     calls that launched it, one kernel per call; launches made while the
-    autotuner times a config count in ``tuner_launches`` instead."""
+    autotuner times a config count in ``tuner_launches`` instead.
+    ``name`` and ``sources`` pick the library (another build of the same C
+    interface, e.g. a variant of the source)."""
 
-    def __init__(self):
+    def __init__(self, name: str = "ssd_chunk", sources: list[Path] = SOURCES):
         self.launches = 0
         self.tuner_launches = 0
         self._lib = None
         self.build_seconds = 0.0
+        self.name, self.sources = name, sources
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib, self.build_seconds = build_library("ssd_chunk", SOURCES)
+            lib, self.build_seconds = build_library(self.name, self.sources)
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.ssd_chunk_launch.argtypes = [vp] * 8 + [i] * 7 + [vp]
             lib.ssd_chunk_launch.restype = i

@@ -10,10 +10,12 @@ identically.
 
 On top, ``cost`` reports ``smem_bytes``: the shared memory one block of
 the port's CUDA kernel (``csrc/ssd_chunk.cu``) takes for a chunk of ``l``
-steps — B, C and x of the chunk held whole in f32, plus a 16-row score
-strip.  The kernel does not sub-tile the chunk, so under a CUDA spec a
-chunk that does not fit (l = 256 and up at N = 128, P = 64) is rejected
-by the tuner and every chunk it can return launches.
+steps — the chunk's B and C B^T held whole in f32, the cum and decay
+weights of its group of heads, and C (while C B^T is built) or two
+buffers of x, rows padded against bank conflicts.  The kernel does not
+sub-tile the chunk, so under a CUDA spec a chunk that does not fit
+(l = 256 and up at N = 128, P = 64) is rejected by the tuner and every
+chunk it can return launches.
 """
 
 from __future__ import annotations
@@ -29,13 +31,22 @@ from repro_torch.kernels.autotune import (
 __all__ = ["shape_key", "candidates", "cost", "default", "smem_bytes"]
 
 _CHUNK_SEEDS = (16, 32, 64, 128, 256, 512)
-_STRIP = 16          # csrc/ssd_chunk.cu: kStrip
+_GROUP = 6           # csrc/ssd_chunk.cu: kGroup, heads per block
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 def smem_bytes(l: int, N: int, P: int) -> int:
     """Shared memory of one block of the CUDA kernel at chunk ``l``; the
-    kernel computes the same number (``ssd_chunk_smem_bytes``)."""
-    return 4 * (2 * l * (N + 1) + l * (P + 1) + l + _STRIP * (l + 1))
+    kernel computes the same number (``ssd_chunk_smem_bytes``): f32 rows of
+    B (lp x (Np + 8)) and C B^T (lp x (lp + 4)), cum and weights of the
+    block's heads, and C (lp x (Np + 4)) or two x buffers (lp x (Pp + 8)) in one
+    region, with lp, Np = l, N rounded up to 16 and Pp = P to 32."""
+    lp, Np, Pp = _round_up(l, 16), _round_up(N, 16), _round_up(P, 32)
+    return 4 * (lp * (Np + 8) + lp * (lp + 4) + 2 * _GROUP * lp
+                + max(lp * (Np + 4), 2 * lp * (Pp + 8)))
 
 
 def shape_key(xh_shape, n_state: int, *, dtype) -> dict:

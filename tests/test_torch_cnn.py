@@ -19,16 +19,7 @@ import torch
 from repro.models import cnn as ref_cnn
 from repro_torch.convert import cnn_params_from_numpy, cnn_params_to_numpy
 from repro_torch.models import cnn
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's side: these CPU-sized cases gain
-    little from more, and other test files run timed steps beside them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_host import port_host_share  # noqa: F401 (autouse)
 
 
 FAMILIES = sorted(cnn.CNN_BUILDERS)

@@ -22,16 +22,7 @@ from repro.kernels.conv_mm.ref import conv_im2col_ref as jax_im2col
 from repro.kernels.conv_mm.ref import conv_ref as jax_conv
 from repro_torch.kernels.conv_mm import conv_im2col_ref, conv_mm, conv_ref
 from repro_torch.kernels.conv_mm import tiling
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's side: these CPU-sized cases gain
-    little from more, and other test files run timed steps beside them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_host import port_host_share  # noqa: F401 (autouse)
 
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=3e-2, atol=3e-2)}

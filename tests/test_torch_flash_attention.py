@@ -21,6 +21,8 @@ from repro_torch.kernels.autotune import (KernelTuner, largest_dividing_block,
                                           set_tuner)
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention import tiling
+from tests._torch_host import port_host_share  # noqa: F401 (autouse)
+
 
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -23,6 +23,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
+from tests._torch_host import port_host_share  # noqa: F401 (autouse)
+
 
 F32 = 1e-5
 

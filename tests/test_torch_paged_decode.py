@@ -19,9 +19,12 @@ import torch
 from repro.kernels.paged_decode import paged_decode_ref as jax_ref
 from repro.kernels.paged_decode.kernel import combine_splits as jax_combine
 from repro.kernels.paged_decode.kernel import paged_decode_kernel
-from repro_torch.kernels.paged_decode import paged_decode_attention
+from repro_torch.kernels.autotune import smem_ok
+from repro_torch.kernels.paged_decode import paged_decode_attention, tiling
 from repro_torch.kernels.paged_decode.ref import NEG_INF, combine_splits
 from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+from tests._torch_host import port_host_share  # noqa: F401 (autouse)
+
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -159,3 +162,72 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
     _, t = _case(2, 8, 2, 64, 3, 16, "float32", [10, 40])
     out = paged_decode_attention(*_args(t), n_splits=2, block_kv=8)
     assert torch.equal(out, paged_decode_ref(*_args(t)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_smem_bytes_formula(Dh, dtype):
+    """Shared memory of one block of the CUDA kernel
+    (``paged_decode_smem_bytes`` in the source): bf16 q and pools with rep
+    <= 8 take the tensor-core kernel, a ring of 3 stages of K and V tiles of
+    block_kv tokens rounded up to a power of two >= 16, in bf16; other types
+    (mixed ones too) and rep > 8 the CUDA-core kernel's static arrays, which
+    block_kv does not change.  ``cost`` reports the config's tile's, so the
+    h100 tuner rejects the 256-token tile at Dh 128 (393,216 B)."""
+    for rep in (1, 2, 4, 5, 8, 16):
+        rows = 1 if rep == 1 else 2 if rep == 2 else 4
+        for bkv, tile in [(1, 16), (16, 16), (24, 32), (32, 32), (64, 64),
+                          (100, 128), (128, 128), (256, 256)]:
+            ring = dtype == "bfloat16" and rep <= 8
+            want = 3 * 2 * tile * Dh * 2 if ring else 4 * rows * (9 * Dh + 16)
+            assert tiling.smem_bytes(Dh, rep, bkv, dtype) == want
+            assert tiling.smem_bytes(Dh, rep, bkv, TORCH_DT[dtype]) == want
+        assert tiling.smem_bytes(Dh, rep, 64, dtype, "float32") == 4 * rows * (9 * Dh + 16)
+    shape = tiling.shape_key(8, 32, 8, Dh, 8, 256, dtype)
+    configs = tiling.candidates(shape)
+    for c in configs:
+        want = tiling.smem_bytes(Dh, 4, c["block_kv"], dtype)
+        assert tiling.cost(shape, c).smem_bytes == want
+    rejected = {c["block_kv"] for c in configs if not smem_ok(tiling.cost(shape, c))}
+    assert rejected == ({256} if (dtype, Dh) == ("bfloat16", 128) else set())
+
+
+def _bf16_ulp(o):
+    return 2.0 ** (torch.floor(torch.log2(o.abs())) - 7)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_p_as_two_bf16_terms(seed):
+    """The tensor-core kernel feeds P·V with P as two bf16 terms, P_hi =
+    bf16(p) and P_lo = bf16(p - P_hi); here that step is emulated (bf16 q, K,
+    V; f32 scores and p; products summed in float64, so only P's form
+    differs) and held, before the final rounding to bf16, against the same
+    sums with p in float64.  Outputs near |o| >= 2 have a bf16 ulp of 2^-6,
+    above the 1e-2 gate, so an error e there flips their rounding, and fails
+    the gate, with probability |e| / ulp.  Two terms stay within 1e-4 and
+    expect under 0.05 flips over these 2^13 outputs; one term is off by more
+    than 1e-3 and expects more than one flip."""
+    rng = np.random.default_rng(seed)
+    rows, n, Dh = 64, 40, 128                # 40 live tokens: a peaked softmax
+    q = torch.from_numpy(rng.standard_normal((rows, Dh))).to(torch.bfloat16).float()
+    k = torch.from_numpy(rng.standard_normal((n, Dh))).to(torch.bfloat16).float()
+    v = torch.from_numpy(3 * rng.standard_normal((n, Dh))).to(torch.bfloat16).double()
+    s = q @ k.T / math.sqrt(Dh)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.double().sum(-1, keepdim=True)
+    exact = p.double() @ v / l
+    hi = p.to(torch.bfloat16)
+    lo = (p - hi.float()).to(torch.bfloat16)
+    big = exact.abs() >= 2
+    assert int(big.sum()) >= 20
+
+    def err_and_flips(terms):
+        o = sum(t.double() for t in terms) @ v / l
+        e = (o - exact).abs()
+        return float(e.max()), float((e / _bf16_ulp(exact))[big].sum())
+
+    two, flips_two = err_and_flips((hi, lo))
+    one, flips_one = err_and_flips((hi,))
+    assert two <= 1e-4 and flips_two < 0.05
+    assert one > 1e-3 and flips_one > 1.0
+

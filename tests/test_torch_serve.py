@@ -34,6 +34,8 @@ from repro_torch.serve import (
     ServeConfig,
     ServeEngine,
 )
+from tests._torch_host import port_host_share  # noqa: F401 (autouse)
+
 
 COUNTS = ("finished", "refused", "expired", "lost", "decode_steps",
           "preemptions", "resumes", "prefill_chunks")

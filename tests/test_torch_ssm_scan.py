@@ -21,9 +21,11 @@ from repro.kernels.ssm_scan.ops import ssd as jax_ssd
 from repro.kernels.ssm_scan.ref import ssd_naive as jax_naive
 from repro.kernels.ssm_scan.ref import ssd_ref as jax_ssd_ref
 from repro.models.layers import ssd_scan as jax_ssd_scan
-from repro_torch.kernels.autotune import KernelTuner, set_tuner
-from repro_torch.kernels.ssm_scan import ssd, ssd_chunk_ref, ssd_naive, ssd_ref
+from repro_torch.kernels.autotune import KernelTuner, set_tuner, smem_ok
+from repro_torch.kernels.ssm_scan import ssd, ssd_chunk_ref, ssd_naive, ssd_ref, tiling
 from repro_torch.models.layers import ssd_scan
+from tests._torch_host import port_host_share  # noqa: F401 (autouse)
+
 
 F32 = dict(rtol=1e-4, atol=1e-4)
 TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -156,3 +158,86 @@ def test_ops_consults_the_tuner_for_a_missing_chunk():
     y16, _ = ssd(*t, chunk=16)
     assert tuner.misses == 1
     np.testing.assert_allclose(_np(y), _np(y16), **F32)
+
+
+@pytest.mark.parametrize("l,N,P,want", [
+    (16, 128, 64, 19_968),
+    (64, 128, 64, 92_160),
+    (128, 128, 64, 217_088),
+    (256, 128, 64, 565_248),
+    (100, 100, 50, 175_616),       # padded to 112, 112 and 64
+])
+def test_smem_bytes_formula(l, N, P, want):
+    """Shared memory of one block of the CUDA kernel (``ssd_chunk_smem_bytes``
+    in the source): B and C B^T of the chunk, cum and weights of the block's
+    6 heads, and C or two x buffers in one region, all f32 with padded rows.
+    At mamba2-780m's shape the h100 tuner admits chunks up to 128 and
+    rejects 256 and up, as before the kernel took the tensor cores."""
+    assert tiling.smem_bytes(l, N, P) == want
+    shape = tiling.shape_key((1, 2048, 48, P), N, dtype=torch.float32)
+    cost = tiling.cost(shape, {"chunk": l})
+    if 2048 % l == 0:
+        assert cost.smem_bytes == want
+    if (N, P) == (128, 64):
+        assert smem_ok(cost) == (l <= 128)
+
+
+def _tf32(x):
+    """TF32 rounding as the kernel does it: round to nearest, then clear the
+    low 13 mantissa bits."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _chunk_products(mm, xh, a, Bm, Cm, l):
+    """y_diag and the states of the plain SSD chunk (``ssd_chunk_ref``, one
+    batch row), every product through ``mm``."""
+    S, H, _ = xh.shape
+    tril = torch.tril(torch.ones(l, l, dtype=torch.bool))
+    ys, states = [], []
+    for c0 in range(0, S, l):
+        x, Bc, Cc = xh[c0:c0 + l], Bm[c0:c0 + l], Cm[c0:c0 + l]
+        cum = torch.cumsum(a[c0:c0 + l], 0)                       # (l, H)
+        G = mm(Cc, Bc.T)
+        y = []
+        for h in range(H):
+            L = torch.where(tril, torch.exp(cum[:, h, None] - cum[None, :, h]), 0.0)
+            y.append(mm(G * L, x[:, h]))
+            w = torch.exp(cum[-1, h] - cum[:, h])
+            states.append(mm((Bc * w[:, None]).T, x[:, h]))
+        ys.append(torch.stack(y, 1))
+    return torch.cat(ys), torch.stack(states)
+
+
+def test_3xtf32_products_keep_f32_accuracy():
+    """The CUDA kernel runs every product of the SSD chunk in 3xTF32 on the
+    tensor cores: each f32 operand split into hi = tf32(v) and lo = tf32(v -
+    hi), and hi·lo + lo·hi + hi·hi summed in f32.  Emulated here on the plain
+    chunk at chunk 128, N 128, P 64 (inputs N(0, 1), a = -0.1·|N(0, 1)|, as
+    chip_smoke.py draws them, so |y| is of order 10), it stays within
+    chip_smoke.py's SSD_TOL = 1e-3 of the f32 plain version; one TF32 product
+    a term does not."""
+    rng = np.random.default_rng(4)
+    S, H, P, N, l = 256, 2, 64, 128, 128
+    xh = torch.from_numpy(rng.standard_normal((S, H, P)).astype(np.float32))
+    a = torch.from_numpy(-np.abs(rng.standard_normal((S, H))).astype(np.float32) * 0.1)
+    Bm = torch.from_numpy(rng.standard_normal((S, N)).astype(np.float32))
+    Cm = torch.from_numpy(rng.standard_normal((S, N)).astype(np.float32))
+    y_f32, st_f32, *_ = ssd_chunk_ref(xh[None], a[None], Bm[None], Cm[None], chunk=l)
+    y_f32, st_f32 = y_f32[0], st_f32[0].reshape(-1, N, P)
+    assert 10 <= float(y_f32.abs().max()) <= 1000
+    y3, st3 = _chunk_products(_mm_3xtf32, xh, a, Bm, Cm, l)
+    y1, st1 = _chunk_products(_mm_tf32, xh, a, Bm, Cm, l)
+    assert float((y3 - y_f32).abs().max()) <= 1e-3
+    assert float((st3 - st_f32).abs().max()) <= 1e-3
+    assert float((y1 - y_f32).abs().max()) > 1e-3
+

@@ -27,16 +27,7 @@ from repro_torch.core import dataset, features, predictor, pruning
 from repro_torch.core.profiler import (make_infer_fn, make_train_step,
                                        profile_inference, profile_training)
 from repro_torch.models import cnn
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's side: these CPU-sized cases gain
-    little from more, and other test files run timed steps beside them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_host import port_host_share  # noqa: F401 (autouse)
 
 
 FAMILIES = sorted(cnn.CNN_BUILDERS)

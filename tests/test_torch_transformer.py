@@ -21,6 +21,8 @@ from repro.models import transformer as JT
 from repro_torch.configs.registry import get_config
 from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.models import transformer as TT
+from tests._torch_host import port_host_share  # noqa: F401 (autouse)
+
 
 F32 = 1e-5
 KV_BF16 = 2e-3
