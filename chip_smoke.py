@@ -51,7 +51,19 @@ Phases (any failure raises and the script exits non-zero):
    convolution shape) the grid gave it; the predictor fitted on the
    train points and its Γ/Φ error printed for each test grid; and a
    traced step at batch 128 (where the time goes);
-7. a ``{"kernels": [...]}`` JSON line, the card line again, and last
+7. engine — paper §6.4 through the cost engine: an analytical spec of
+   this card calibrated on the cnn phase's train grid (every workload
+   from the cnn phase's cache, none profiled) and the tuner's timed
+   winners; 16 full-width ResNet-50 sub-networks (seeds 2000 + i)
+   profiled for inference at bs 1, 2, 4, 8 and for training at bs 16,
+   the inference forest fitted on 10 and tested on 6; the evolutionary
+   search (population 32, 40 iterations) through a ``CostEngine`` over
+   forest → calibrated analytical → profiler, under no budget and under
+   budgets at the median and the lower quartile of the sub-networks'
+   measurements; each winner measured by the engine's chain; tier A
+   repeated (same result, no new miss); the convolution kernel's launch
+   count read around the phase;
+8. a ``{"kernels": [...]}`` JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it fails
@@ -1210,7 +1222,8 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
               f"Φ MAPE {rep.phi_mape:.2%}")
         if not (np.isfinite(rep.gamma_mape) and np.isfinite(rep.phi_mape)):
             raise AssertionError("predictor errors are not finite")
-    return {"launches": launches, "max_abs_err": err}
+    return {"launches": launches, "max_abs_err": err, "points": points,
+            "forest": model, "cache": str(path), "train_grid": grids["train random"]}
 
 
 def cnn_step_breakdown(bs: int = 128, n_steps: int = 5) -> None:
@@ -1269,6 +1282,302 @@ def cnn_phase() -> dict:
     cnn_step_breakdown()
     print(f"cnn phase done in {time.perf_counter() - t0:.1f} s")
     return result
+
+
+# ---------------------------------------------------------------------------
+# The cost engine, calibration and the §6.4 evolutionary search
+# ---------------------------------------------------------------------------
+
+# benchmarks/table2_case_study.py's protocol at full width: sub-networks
+# sampled from seeds 2000 + i, 10 to fit the inference forest and 6 to test
+# it, profiled for inference at four batch sizes and once for training at
+# the search's batch size; the reference runner's search size (the paper's
+# is population 100 x 500 iterations)
+N_TRAIN_SUB, N_TEST_SUB = 10, 6
+INFER_BS = (1, 2, 4, 8)
+SEARCH_TRAIN_BS, SEARCH_INFER_BS = 16, 1
+SEARCH = dict(population=32, iterations=40, seed=0)
+# Every profile of the phase (sub-networks, winners) takes the median of
+# 10 steps after 2 warm-up steps: more than the reference runner's
+# profiler defaults (3 and 1 for inference, 2 and 1 for training), since
+# φ at bs 1 on the card is host time.  A profile runs
+# 2 + warmup + repeats steps, each launching conv_mm once per groups = 1
+# convolution.
+PROFILE = dict(repeats=10, warmup=2)
+PROFILE_STEPS = 2 + PROFILE["warmup"] + PROFILE["repeats"]
+# a budgeted tier leaves at least this many candidates of the search's
+# first population feasible, as the engine predicts them
+FEASIBLE_FIRST = 4
+
+
+def search_fields(r) -> dict:
+    """A SearchResult's fields, all but its wall time."""
+    import dataclasses
+
+    d = dataclasses.asdict(r)
+    d.pop("search_time_s")
+    return d
+
+
+def positive(label: str, *values) -> None:
+    if not (np.isfinite(values).all() and min(values) > 0):
+        raise AssertionError(f"{label}: not finite and positive: {values}")
+
+
+def engine_phase(cnn: dict) -> dict:
+    """Paper §6.4 on the card, through the port's cost engine: an
+    analytical spec of this card calibrated on the cnn phase's train grid
+    (served from its cache), the inference forest fitted on profiled
+    ResNet-50 sub-networks, the evolutionary search under three budget
+    tiers, each winner profiled through the engine, and the search
+    repeated from its cache."""
+    import torch
+
+    from repro_torch.core.dataset import DatasetCache
+    from repro_torch.core.features import network_features
+    from repro_torch.core.predictor import Perf4Sight, mape
+    from repro_torch.core.profiler import profile_inference, profile_training
+    from repro_torch.core.search import (Constraints, evolutionary_search,
+                                         sample_subnetwork)
+    from repro_torch.engine import (AnalyticalBackend, CalibrationWorkload,
+                                    CostEngine, CostQuery, EnsembleBackend,
+                                    EstimateCache, ForestBackend, ProfilerBackend,
+                                    calibrate, evaluate_accuracy, from_torch_device,
+                                    measure_ground_truth)
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.conv_mm.kernel import conv_mm_cuda
+    from repro_torch.models.cnn import build_resnet50
+
+    grid = cnn["train_grid"]
+    wm, hw = grid.width_mult, grid.input_hw
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    conv_mm_cuda.launches = 0
+    expected = 0
+    window = TunerWindow()
+
+    # 1. calibrate an analytical spec of this card on the cnn phase's grid
+    profiler = ProfilerBackend(**PROFILE)
+    workloads = [CalibrationWorkload(grid.family, lv, bs, strategy=grid.strategy,
+                                     width_mult=wm, input_hw=hw, seed=grid.seed)
+                 for lv in grid.levels for bs in grid.batch_sizes]
+    dps, profiled = measure_ground_truth(profiler, workloads, DatasetCache(cnn["cache"]))
+    print(f"engine calibration ground truth: {len(workloads)} workloads "
+          f"({grid.family} width {wm} {hw}x{hw}, levels {list(grid.levels)} x batch "
+          f"sizes {list(grid.batch_sizes)}), {len(workloads) - profiled} from the cnn "
+          f"phase's cache, profiled {profiled}")
+    if profiled != 0 or len(dps) != len(workloads):
+        raise AssertionError("calibration must be served from the cnn phase's cache")
+    analytical = AnalyticalBackend(device=from_torch_device())
+    tests = {name: cnn["points"][name] for name in ("test random", "test l1")}
+    before = {name: evaluate_accuracy(analytical, pts) for name, pts in tests.items()}
+    tuning = autotune.get_tuner().cache
+    spec = calibrate(analytical, profiler, workloads, datapoints=dps, tuning_cache=tuning)
+    consts = {f: getattr(spec, f) for f in ("peak_flops", "hbm_bw", "launch_overhead_s",
+                                            "mem_base_mb", "mem_weight_scale",
+                                            "mem_act_scale")}
+    print(f"engine calibrated spec {spec.name} (fingerprint {spec.fingerprint()}): "
+          + ", ".join(f"{k}={v:.6g}" for k, v in consts.items())
+          + f", combine={spec.combine}, class_coeffs={json.dumps(spec.class_coeffs)}, "
+          f"meta={json.dumps(spec.meta)}")
+    if not (spec.calibrated and np.isfinite(list(consts.values())).all() and min(consts.values()) >= 0):
+        raise AssertionError(f"bad calibrated spec: {spec}")
+    forest = ForestBackend(train=cnn["forest"])
+    for name, pts in tests.items():
+        after, tree = evaluate_accuracy(analytical, pts), evaluate_accuracy(forest, pts)
+        print(f"engine accuracy on {name} ({after['n']} points): analytical "
+              f"uncalibrated Φ MAPE {before[name]['phi_mape']:.2%} Γ MAPE "
+              f"{before[name]['gamma_mape']:.2%}; calibrated Φ MAPE "
+              f"{after['phi_mape']:.2%} Γ MAPE {after['gamma_mape']:.2%}; forest "
+              f"Φ MAPE {tree['phi_mape']:.2%} Γ MAPE {tree['gamma_mape']:.2%}")
+        positive(f"accuracy on {name}", after["phi_mape"], after["gamma_mape"],
+                 tree["phi_mape"], tree["gamma_mape"])
+
+    # 2. the inference forest, on profiled sub-networks
+    base = build_resnet50(width_mult=wm, input_hw=hw)
+    rows = []
+    t1 = time.perf_counter()
+    for i in range(N_TRAIN_SUB + N_TEST_SUB):
+        m = build_resnet50(widths=sample_subnetwork(base.widths,
+                                                    np.random.default_rng(2000 + i)),
+                           input_hw=hw)
+        net, steps = m.conv_specs(), len(conv_nodes(m)) * PROFILE_STEPS
+        for stage, bs in [("infer", b) for b in INFER_BS] + [("train", SEARCH_TRAIN_BS)]:
+            prof = profile_inference if stage == "infer" else profile_training
+            t = time.perf_counter()
+            res = prof(m, bs, **PROFILE)
+            rows.append({"sub": i, "bs": bs, "stage": stage, "gamma": res.gamma_mb,
+                         "phi": res.phi_ms, "profile_s": time.perf_counter() - t,
+                         "features": network_features(net, bs)})
+            expected += steps
+            positive(f"sub-network {i} {stage} bs {bs}", res.gamma_mb, res.phi_ms)
+    infer_rows = [r for r in rows if r["stage"] == "infer"]
+    fit = [r for r in infer_rows if r["sub"] < N_TRAIN_SUB]
+    held = [r for r in infer_rows if r["sub"] >= N_TRAIN_SUB]
+    infer_model = Perf4Sight(n_estimators=100, seed=0).fit_arrays(
+        np.array([r["features"] for r in fit]), np.array([r["gamma"] for r in fit]),
+        np.array([r["phi"] for r in fit]))
+    pg, pp = infer_model.predict_features(np.array([r["features"] for r in held]))
+    g_err = mape(pg, np.array([r["gamma"] for r in held]))
+    p_err = mape(pp, np.array([r["phi"] for r in held]))
+    train_rows = [r for r in rows if r["stage"] == "train"]
+    pt, _ = cnn["forest"].predict_features(np.array([r["features"] for r in train_rows]))
+    gt_err = mape(pt, np.array([r["gamma"] for r in train_rows]))
+    mean_profile_s = float(np.mean([r["profile_s"] for r in rows]))
+    print(f"engine sub-networks: {len(rows)} profiles of {N_TRAIN_SUB + N_TEST_SUB} "
+          f"ResNet-50 sub-networks (seeds 2000..{1999 + N_TRAIN_SUB + N_TEST_SUB}; "
+          f"inference at bs {list(INFER_BS)}, training at bs {SEARCH_TRAIN_BS}) in "
+          f"{time.perf_counter() - t1:.1f} s, mean {mean_profile_s:.3f} s a profile")
+    print(f"engine inference forest fitted on {len(fit)} rows of {N_TRAIN_SUB} "
+          f"sub-networks, tested on {len(held)} rows of {N_TEST_SUB}: γ MAPE "
+          f"{g_err:.2%} (paper, TX2: 1.8%), φ MAPE {p_err:.2%} (paper: 4.4%); "
+          f"the grid's Γ forest on the {len(train_rows)} sub-networks at bs "
+          f"{SEARCH_TRAIN_BS}: Γ MAPE {gt_err:.2%} (paper: 4.28%)")
+    positive("sub-network errors", g_err, p_err, gt_err)
+    for r in train_rows:
+        inf = [x for x in infer_rows if x["sub"] == r["sub"]]
+        print(f"engine sub-network {r['sub']}: Γ(bs {SEARCH_TRAIN_BS}) {r['gamma']:.1f} MB "
+              f"Φ {r['phi']:.3f} ms; bs {[x['bs'] for x in inf]}: γ MB "
+              f"{[round(x['gamma'], 2) for x in inf]} φ ms {[round(x['phi'], 3) for x in inf]}")
+
+    # 3. the search, under budgets from the measured sub-networks
+    path = ROOT / "build" / "repro_torch" / "engine_estimates.json"
+    path.unlink(missing_ok=True)          # a fresh cache: every estimate is a miss
+    engine = CostEngine(EnsembleBackend([
+        ForestBackend(train=cnn["forest"], infer=infer_model), analytical,
+        ProfilerBackend(**PROFILE)]), cache=EstimateCache(str(path)))
+    bs_kw = dict(train_bs=SEARCH_TRAIN_BS, infer_bs=SEARCH_INFER_BS)
+    tiers = {"MAX": Constraints(**bs_kw)}
+    tier_notes = {"MAX": "no budget"}
+    measured = np.array([[r["gamma"] for r in train_rows],
+                         [r["gamma"] for r in infer_rows if r["bs"] == SEARCH_INFER_BS],
+                         [r["phi"] for r in infer_rows if r["bs"] == SEARCH_INFER_BS]])
+    # The search's first population (its rng draws it first from the seed)
+    # as the engine predicts it.  A budget at a quantile of the measurements
+    # can lie below every prediction (φ at bs 1 is host time on the card,
+    # which the forest does not follow), so each metric's budget is the
+    # larger of the quantile of the measurements and that of the predicted
+    # first population: then it binds on its own.  Together the three may
+    # leave no first candidate feasible, so the budget is raised uniformly,
+    # by the least factor that leaves FEASIBLE_FIRST of them feasible, and
+    # B's is held inside A's.
+    rng = np.random.default_rng(SEARCH["seed"])
+    first_w = [sample_subnetwork(base.widths, rng) for _ in range(SEARCH["population"])]
+    first = [build_resnet50(widths=w, input_hw=hw).conv_specs() for w in first_w]
+    first_fit = np.array([sum(w.values()) for w in first_w], dtype=float)
+    pred = np.array([[t.gamma_mb, i.gamma_mb, i.phi_ms] for t, i in zip(
+        engine.estimate([CostQuery(spec=n, bs=SEARCH_TRAIN_BS, stage="train") for n in first]),
+        engine.estimate([CostQuery(spec=n, bs=SEARCH_INFER_BS, stage="infer") for n in first]))])
+    best_first = {"MAX": first_fit.max()}
+    cap = np.full(3, np.inf)
+    for name, q in (("A", 50), ("B", 25)):
+        quant = np.maximum(np.percentile(measured, q, axis=1), np.percentile(pred, q, axis=0))
+        for raise_by in np.unique(np.append((pred / quant).max(axis=1), 1.0)):
+            budget = np.minimum(cap, quant * max(raise_by, 1.0))
+            feasible = (pred <= budget).all(axis=1)
+            if feasible.sum() >= FEASIBLE_FIRST:
+                break
+        else:
+            raise AssertionError(f"tier {name}: no budget leaves {FEASIBLE_FIRST} feasible")
+        cap = budget
+        best_first[name] = first_fit[feasible].max()
+        tiers[name] = Constraints(gamma_mb=float(budget[0]), gamma_inf_mb=float(budget[1]),
+                                  phi_inf_ms=float(budget[2]), **bs_kw)
+        tier_notes[name] = (
+            f"Γ <= {budget[0]:.2f} MB, γ <= {budget[1]:.2f} MB, φ <= {budget[2]:.4f} ms; "
+            f"the larger of the {'median' if q == 50 else '25th percentile'} of the "
+            f"sub-networks' measurements ({', '.join(f'{v:.4g}' for v in np.percentile(measured, q, axis=1))}) "
+            f"and of the predicted first population ({', '.join(f'{v:.4g}' for v in np.percentile(pred, q, axis=0))}), "
+            f"raised x{max(raise_by, 1.0):.4f}{' and held inside A' if name == 'B' else ''}: "
+            f"{int(feasible.sum())} first candidates feasible, the best of fitness "
+            f"{best_first[name]:.0f}")
+    print("engine first population predicted (%d candidates): Γ %.1f-%.1f MB, γ %.2f-%.2f MB, "
+          "φ %.4f-%.4f ms" % (len(pred), *np.ravel(list(zip(pred.min(0), pred.max(0))))))
+    results = {}
+    for name, tier in tiers.items():
+        r = results[name] = evolutionary_search("resnet50", engine, tier, width_mult=wm,
+                                                input_hw=hw, **SEARCH)
+        print(f"engine search tier {name} ({tier_notes[name]}; train bs {tier.train_bs}, "
+              f"infer bs {tier.infer_bs}; population {SEARCH['population']}, iterations "
+              f"{SEARCH['iterations']}, seed {SEARCH['seed']}): fitness {r.fitness:.0f} "
+              f"(of {sum(base.widths.values())} filters; the best feasible first candidate "
+              f"{best_first[name]:.0f}), predicted Γ {r.gamma_mb:.2f} MB "
+              f"γ {r.gamma_inf_mb:.2f} MB φ {r.phi_inf_ms:.4f} ms; {r.evaluations} "
+              f"evaluations in {r.search_time_s:.3f} s; engine hits {engine.hits} "
+              f"misses {engine.misses}")
+        positive(f"tier {name} winner", r.fitness, r.gamma_mb, r.gamma_inf_mb, r.phi_inf_ms)
+        if any(b < a for a, b in zip(r.history, r.history[1:])):
+            raise AssertionError(f"tier {name}: the best fitness fell: {r.history}")
+        for budget_v, got in ((tier.gamma_mb, r.gamma_mb), (tier.gamma_inf_mb, r.gamma_inf_mb),
+                              (tier.phi_inf_ms, r.phi_inf_ms)):
+            if budget_v is not None and got > budget_v:
+                raise AssertionError(f"tier {name}: predicted {got} over budget {budget_v}")
+        # the search must do better than the best feasible candidate it drew
+        if not r.fitness > best_first[name]:
+            raise AssertionError(f"tier {name}: winner {r.fitness} no better than the best "
+                                 f"feasible first candidate {best_first[name]}")
+    mx = results["MAX"]
+    for name in ("A", "B"):
+        t = tiers[name]
+        over = (mx.gamma_mb > t.gamma_mb, mx.gamma_inf_mb > t.gamma_inf_mb,
+                mx.phi_inf_ms > t.phi_inf_ms)
+        print(f"engine tier {name} binding: the MAX winner's predictions exceed "
+              f"Γ {over[0]}, γ {over[1]}, φ {over[2]}")
+        if not any(over):
+            raise AssertionError(f"tier {name}'s budget does not bind the MAX winner")
+
+    # 4. each winner measured by the engine's chain: model-only queries fall
+    # through forest and analytical to the profiler.  Not through the
+    # engine's cache: a model-only query keys on the conv geometry, as the
+    # reference's does, so the search's own forest estimate of the winner
+    # answers it there (ROADMAP queue 3)
+    for name, r in results.items():
+        tier = tiers[name]
+        m = build_resnet50(widths=r.widths, input_hw=hw)
+        qs = [CostQuery(model=m, bs=tier.train_bs, stage="train"),
+              CostQuery(model=m, bs=tier.infer_bs, stage="infer")]
+        est_t, est_i = engine.backend.estimate(qs)
+        for e in (est_t, est_i):
+            if e.source != "profiler":
+                raise AssertionError(f"tier {name} winner answered by {e.source}")
+            positive(f"tier {name} winner measured", e.gamma_mb, e.phi_ms)
+            expected += len(conv_nodes(m)) * PROFILE_STEPS
+        meets = not (
+            (tier.gamma_mb is not None and est_t.gamma_mb > tier.gamma_mb)
+            or (tier.gamma_inf_mb is not None and est_i.gamma_mb > tier.gamma_inf_mb)
+            or (tier.phi_inf_ms is not None and est_i.phi_ms > tier.phi_inf_ms))
+        print(f"engine tier {name} winner measured by the engine's chain (source "
+              f"{est_t.source}): Γ {est_t.gamma_mb:.2f} MB (predicted {r.gamma_mb:.2f}), "
+              f"γ {est_i.gamma_mb:.2f} MB (predicted {r.gamma_inf_mb:.2f}), φ "
+              f"{est_i.phi_ms:.4f} ms (predicted {r.phi_inf_ms:.4f}); measurement meets "
+              f"the budget: {meets}")
+
+    # 5. tier A again: the same result, every estimate from the cache
+    misses = engine.misses
+    again = evolutionary_search("resnet50", engine, tiers["A"], width_mult=wm,
+                                input_hw=hw, **SEARCH)
+    print(f"engine tier A repeated: same result {search_fields(again) == search_fields(results['A'])}, "
+          f"new misses {engine.misses - misses}, in {again.search_time_s:.3f} s")
+    if search_fields(again) != search_fields(results["A"]) or engine.misses != misses:
+        raise AssertionError("the repeated search differs or missed the cache")
+
+    # 6. what the search cost, against profiling every candidate
+    for name, r in [*results.items(), ("A (repeat)", again)]:
+        naive = r.evaluations * mean_profile_s
+        print(f"engine search cost tier {name}: {r.evaluations} evaluations in "
+              f"{r.search_time_s:.3f} s ({r.evaluations / r.search_time_s:.0f} evaluations/s); "
+              f"profiling each on the card: {naive:.1f} s ({r.evaluations} x "
+              f"{mean_profile_s:.3f} s), {naive / r.search_time_s:.0f}x the search")
+
+    torch.cuda.synchronize()
+    launches = conv_mm_cuda.launches
+    window.report("engine")
+    print(f"engine conv_mm launches={launches} (expected {expected} = sum of groups=1 "
+          f"convolutions over the profiled topologies x {PROFILE_STEPS} steps); phase "
+          f"done in {time.perf_counter() - t0:.1f} s")
+    if launches != expected:
+        raise AssertionError(f"engine phase conv_mm launches {launches} != {expected}")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -1331,6 +1640,7 @@ def main() -> int:
     served = serve_phase()
     reference_phase()
     cnn = cnn_phase()
+    engine = engine_phase(cnn)
 
     kernels = [{
         "name": "paged_decode",
@@ -1346,6 +1656,7 @@ def main() -> int:
         "source": str(conv_kernel.SOURCES[0].relative_to(ROOT)),
         "replaces": CONV_REPLACES,
         "launches": cnn["launches"],
+        "engine_launches": engine["launches"],
         "max_abs_err": cnn["max_abs_err"],
         **conv_timing,
     }, {

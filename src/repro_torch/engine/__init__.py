@@ -1,10 +1,30 @@
-"""Cost-engine package of the port (port of ``repro/engine/``).
+"""Unified cost-prediction engine of the port (port of ``repro/engine/``).
 
-This slice ports the device registry only (:mod:`.devices`), which the
-kernel autotuner salts its cache keys with; the engine, backends,
-decomposition and calibration come with ROADMAP queue 1, item 5a.
+One batched, cacheable API — ``CostBackend.estimate(queries) ->
+CostEstimate[]`` — over the three cost paths: the fitted perf4sight
+forest, the analytical closed forms, and the ground-truth profiler on the
+card.  Hardware constants live in the device registry
+(:mod:`repro_torch.engine.devices`) and are fitted per device by
+:mod:`repro_torch.engine.calibrate`.  The CNN paths are ported; LM arch
+queries wait for ROADMAP queue 1 items 5b (the cost ledger) and 6
+(``LMForest``).
 """
 
+from repro_torch.engine.backends import (
+    AnalyticalBackend,
+    EnsembleBackend,
+    ForestBackend,
+    ProfilerBackend,
+)
+from repro_torch.engine.cache import EstimateCache
+from repro_torch.engine.calibrate import (
+    CalibrationWorkload,
+    calibrate,
+    default_workloads,
+    evaluate_accuracy,
+    measure_ground_truth,
+    timed_tuning_rows,
+)
 from repro_torch.engine.devices import (
     DEVICE_REGISTRY,
     POWER_MODE_FIELDS,
@@ -17,16 +37,44 @@ from repro_torch.engine.devices import (
     resolve_device,
     save_device_spec,
 )
+from repro_torch.engine.engine import CostEngine, HealthState
+from repro_torch.engine.types import (
+    STAGE_INFER,
+    STAGE_TRAIN,
+    BackendUnavailable,
+    CostBackend,
+    CostEstimate,
+    CostQuery,
+)
 
 __all__ = [
-    "DeviceSpec",
+    "AnalyticalBackend",
+    "BackendUnavailable",
+    "CalibrationWorkload",
+    "CostBackend",
+    "CostEngine",
+    "CostEstimate",
+    "CostQuery",
     "DEVICE_REGISTRY",
+    "DeviceSpec",
+    "EnsembleBackend",
+    "EstimateCache",
+    "ForestBackend",
+    "HealthState",
     "POWER_MODE_FIELDS",
-    "get_device",
-    "register_device",
-    "list_devices",
-    "resolve_device",
+    "ProfilerBackend",
+    "STAGE_INFER",
+    "STAGE_TRAIN",
+    "calibrate",
+    "default_workloads",
+    "evaluate_accuracy",
     "from_torch_device",
-    "save_device_spec",
+    "get_device",
+    "list_devices",
     "load_device_spec",
+    "measure_ground_truth",
+    "register_device",
+    "resolve_device",
+    "save_device_spec",
+    "timed_tuning_rows",
 ]

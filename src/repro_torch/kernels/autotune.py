@@ -55,7 +55,6 @@ from typing import Callable
 
 from repro_torch.core.fileio import atomic_write_json, load_json_tolerant
 from repro_torch.costmodel import OpCost
-from repro_torch.engine.devices import from_torch_device, resolve_device
 
 __all__ = [
     "KernelCost",
@@ -331,10 +330,16 @@ class KernelTuner:
     @property
     def device(self):
         """The DeviceSpec keys are salted with (derived from the live torch
-        device when not configured)."""
+        device when not configured).  Imported here, as in the reference:
+        the engine package imports the core modules, which import the
+        kernels."""
         if self._device is None:
+            from repro_torch.engine.devices import from_torch_device
+
             self._device = from_torch_device()
         elif isinstance(self._device, (str, dict)):
+            from repro_torch.engine.devices import resolve_device
+
             self._device = resolve_device(self._device)
         return self._device
 

@@ -19,7 +19,7 @@ import torch
 from repro.models import cnn as ref_cnn
 from repro_torch.convert import cnn_params_from_numpy, cnn_params_to_numpy
 from repro_torch.models import cnn
-from tests._torch_host import port_host_share  # noqa: F401 (autouse)
+from tests._torch_host import float64_jit, port_host_share  # noqa: F401 (autouse)
 
 
 FAMILIES = sorted(cnn.CNN_BUILDERS)
@@ -86,7 +86,7 @@ def _batch(seed=1):
     return x, y
 
 
-def _jax_loss_and_grads(ref, params, x, y):
+def _jax_loss_and_grads(ref, params, x, y, jit=jax.jit):
     """(loss, logits, grads) of the reference, as numpy float64."""
 
     def loss_fn(p):
@@ -94,7 +94,7 @@ def _jax_loss_and_grads(ref, params, x, y):
         logp = jax.nn.log_softmax(logits)
         return -jnp.mean(jnp.take_along_axis(logp, y[:, None], axis=1)), logits
 
-    (loss, logits), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    (loss, logits), grads = jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
     return (np.float64(loss), np.asarray(logits, np.float64),
             [np.asarray(g, np.float64) for _, g in _flat(grads)])
 
@@ -135,7 +135,7 @@ def test_logits_and_grads_match(family):
     with jax.enable_x64(True):
         exact = _jax_loss_and_grads(
             ref, jax.tree.map(lambda a: a.astype(np.float64), init),
-            x.astype(np.float64), y)
+            x.astype(np.float64), y, jit=float64_jit)
     ref32 = _jax_loss_and_grads(ref, init, x, y)
     port = _torch_loss_and_grads(mine, cnn_params_from_numpy(init, device="cpu"), x, y)
     names = ["loss", "logits"] + [jax.tree_util.keystr(k) for k, _ in _flat(init)]

@@ -59,6 +59,7 @@ def _entry_points():
     from repro_torch.convert import cnn_params_from_numpy, params_from_jax
     from repro_torch.core.dataset import GridSpec, collect_grid
     from repro_torch.core.profiler import profile_inference, profile_training
+    from repro_torch.engine import ProfilerBackend
     from repro_torch.models import transformer as T
     from repro_torch.models.cnn import build_squeezenet
     from repro_torch.serve import ContinuousEngine, ServeEngine
@@ -70,6 +71,7 @@ def _entry_points():
         "profile_training": lambda: profile_training(cnn, 2),
         "profile_inference": lambda: profile_inference(cnn, 2),
         "collect_grid": lambda: collect_grid(GridSpec("squeezenet", (0.0,))),
+        "ProfilerBackend": lambda: ProfilerBackend(),
         "cnn_params_from_numpy": lambda: cnn_params_from_numpy(cnn.init(0)),
         "ContinuousEngine": lambda: ContinuousEngine(cfg, params),
         "ServeEngine": lambda: ServeEngine(cfg, params),
@@ -84,7 +86,8 @@ def _entry_points():
                                   "init_params", "init_cache",
                                   "init_paged_cache", "params_from_jax",
                                   "profile_training", "profile_inference",
-                                  "collect_grid", "cnn_params_from_numpy"])
+                                  "collect_grid", "cnn_params_from_numpy",
+                                  "ProfilerBackend"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     call = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -142,6 +145,36 @@ def test_ssd_chunk_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_chunk_cuda(x, torch.zeros(1, 16, 2), bc, bc, chunk=16)
     assert ssd_chunk_cuda.launches == ssd_chunk_cuda.tuner_launches == 0
+
+
+def test_profiler_backend_takes_the_cpu_when_asked():
+    """``ProfilerBackend(device="cpu")`` is the one way to profile without a
+    card; its salt names the device."""
+    from repro_torch.engine import ProfilerBackend
+
+    assert ProfilerBackend(device="cpu").device == torch.device("cpu")
+    assert ProfilerBackend(device="cpu").cache_salt().endswith(":cpu")
+
+
+def test_new_modules_of_the_engine_slice_are_covered():
+    """The engine slice's modules, named as for the tuner slice below; the
+    probe above holds that none of them pulls in ``jax`` or ``repro``."""
+    import importlib
+
+    import repro_torch.engine as engine
+
+    for name in ("repro_torch.engine.types", "repro_torch.engine.cache",
+                 "repro_torch.engine.decompose", "repro_torch.engine.engine",
+                 "repro_torch.engine.backends", "repro_torch.engine.calibrate",
+                 "repro_torch.core.search"):
+        importlib.import_module(name)
+    for name in ("CostQuery", "CostEstimate", "EstimateCache", "CostEngine",
+                 "HealthState", "ForestBackend", "AnalyticalBackend",
+                 "ProfilerBackend", "EnsembleBackend", "calibrate",
+                 "default_workloads", "measure_ground_truth", "evaluate_accuracy"):
+        assert name in engine.__all__ and hasattr(engine, name)
+    search = importlib.import_module("repro_torch.core.search")
+    assert {"Constraints", "SearchResult", "evolutionary_search"} <= set(search.__all__)
 
 
 def test_new_modules_of_the_tuner_slice_are_covered():

@@ -27,7 +27,7 @@ from repro_torch.core import dataset, features, predictor, pruning
 from repro_torch.core.profiler import (make_infer_fn, make_train_step,
                                        profile_inference, profile_training)
 from repro_torch.models import cnn
-from tests._torch_host import port_host_share  # noqa: F401 (autouse)
+from tests._torch_host import float64_jit, port_host_share  # noqa: F401 (autouse)
 
 
 FAMILIES = sorted(cnn.CNN_BUILDERS)
@@ -235,7 +235,8 @@ def test_train_step_matches_reference(family):
     ref_step = jax.jit(ref_make_train_step(ref))
     with jax.enable_x64(True):
         to64 = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)  # noqa: E731
-        p64, m64, l64 = ref_step(to64(init), to64(mom), x.astype(np.float64), y)
+        p64, m64, l64 = float64_jit(ref_make_train_step(ref))(
+            to64(init), to64(mom), x.astype(np.float64), y)
         exact = _flat(p64) + _flat(m64) + [np.float64(l64)]
     p32, m32, l32 = ref_step(init, mom, x, y)
     ref32 = _flat(p32) + _flat(m32) + [np.float64(l32)]
@@ -347,15 +348,15 @@ def test_reduced_resnet50_step_conditioning():
     x = rng.normal(size=(8, 16, 16, 3)).astype(np.float32)
     y = rng.integers(0, 100, size=(8,)).astype(np.int32)
 
-    def jax_grads(params, xx):
+    def jax_grads(params, xx, jit=jax.jit):
         def loss(p):
             logp = jax.nn.log_softmax(ref.apply(p, xx))
             return -jax.numpy.mean(jax.numpy.take_along_axis(logp, y[:, None], axis=1))
-        return _flat(jax.jit(jax.grad(loss))(params))
+        return _flat(jit(jax.grad(loss))(params))
 
     with jax.enable_x64(True):
         exact = jax_grads(jax.tree.map(lambda a: a.astype(np.float64), init),
-                          x.astype(np.float64))
+                          x.astype(np.float64), jit=float64_jit)
     params = cnn_params_from_numpy(init, device="cpu")
     leaves = [leaf for _, leaf in jax.tree_util.tree_leaves_with_path(params)]
     for leaf in leaves:
