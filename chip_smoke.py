@@ -60,10 +60,20 @@ Phases (any failure raises and the script exits non-zero):
    search (population 32, 40 iterations) through a ``CostEngine`` over
    forest → calibrated analytical → profiler, under no budget and under
    budgets at the median and the lower quartile of the sub-networks'
-   measurements; each winner measured by the engine's chain; tier A
-   repeated (same result, no new miss); the convolution kernel's launch
-   count read around the phase;
-8. a ``{"kernels": [...]}`` JSON line, the card line again, and last
+   measurements (the Table 2 runner's ``budget_tiers``); each winner
+   measured through the engine (model-only queries, answered by the
+   profiler); tier A repeated (same result, no new miss); the convolution
+   kernel's launch count read around the phase;
+8. bench — two paper runners of ``repro_torch.bench`` at full width: the
+   §6.2.1 DNNMem comparison over the cnn phase's cache (0 profiled, 0
+   convolution kernel launches) and the §6.2 strategy variation on a fresh
+   cache (the MobileNetV2 train grid and 8 strategies profiled, the kernel's
+   launches held to the expected count), each gated on the datapoints and
+   launches its runner reports; their CSV lines; then the kernel held
+   against its plain version at every (batch size, convolution shape) the
+   strategies run gave it and at every one the full paper set
+   (``python -m repro_torch.bench.run``) gives it, seven families;
+9. a ``{"kernels": [...]}`` JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it fails
@@ -914,7 +924,6 @@ def ssd_kernel_phase(flush, tuned: dict) -> dict:
 CONV_EDGES = [(2, 8, 8, 8, 3, 16, 1, 1), (1, 16, 16, 4, 3, 8, 2, 1),
               (2, 8, 8, 16, 1, 32, 1, 0), (1, 9, 9, 8, 5, 8, 2, 2),
               (2, 8, 8, 3, 3, 8, 1, 0), (3, 7, 5, 13, 3, 70, 1, 1)]
-GRID_BS = (2, 16, 64, 128, 256)
 
 
 def conv_nodes(model) -> list:
@@ -993,6 +1002,34 @@ def conv_check(x, w, stride: int, padding: int) -> float:
         raise AssertionError(f"conv_mm disagrees at {where}: "
                              f"max_abs_err {float(diff.max()):.3e}")
     return float(diff.max())
+
+
+def topology_pairs(models, batch_sizes) -> set:
+    """Distinct (batch size, H, W, C, K, O, stride, padding) over the
+    groups = 1 convolutions of ``models``, each at every batch size: the
+    shapes a profile of those topologies gives the kernel."""
+    return {(bs, *conv_shape(*c)) for m in models for c in conv_nodes(m)
+            for bs in batch_sizes}
+
+
+def check_conv_pairs(pairs, label: str, seed: int) -> float:
+    """``conv_check`` in f32 at every pair of ``topology_pairs``, on inputs
+    drawn from ``seed``; prints one line and returns the max abs error.
+    Call it after the main path's count is read: these launches are not
+    the main path's."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    err = 0.0
+    for N, H, W, C, K, O, s, p in sorted(pairs):
+        x, w = conv_inputs(gen, N, H, W, C, K, O, torch.float32)
+        err = max(err, conv_check(x, w, s, p))
+    del x, w
+    print(f"kernel conv_mm {label}: {len(pairs)} distinct (batch size, convolution) "
+          f"pairs float32: max_abs_err={err:.3e} (rtol {CONV_TOL['float32'][0]}, atol "
+          f"{CONV_TOL['float32'][1]}) in {time.perf_counter() - t0:.1f} s")
+    return err
 
 
 def conv_kernel_phase(flush) -> dict:
@@ -1148,6 +1185,7 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
     prune, profile Γ/Φ per (level, batch size), cache, fit, predict."""
     import torch
 
+    from repro_torch.bench.common import GRID_BS
     from repro_torch.core.dataset import (DEFAULT_TEST_LEVELS, PAPER_TRAIN_LEVELS,
                                           DatasetCache, GridSpec, _build_pruned,
                                           collect_grid)
@@ -1159,9 +1197,9 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
         "test random": GridSpec("resnet50", DEFAULT_TEST_LEVELS, "random", GRID_BS, 1.0, 32),
         "test l1": GridSpec("resnet50", DEFAULT_TEST_LEVELS, "l1", GRID_BS, 1.0, 32),
     }
-    shapes = {(name, lv): [conv_shape(*c) for c in conv_nodes(_build_pruned(spec, lv))]
-              for name, spec in grids.items() for lv in spec.levels}
-    n_convs = {key: len(v) for key, v in shapes.items()}
+    topologies = {(name, lv): _build_pruned(spec, lv)
+                  for name, spec in grids.items() for lv in spec.levels}
+    n_convs = {key: len(conv_nodes(m)) for key, m in topologies.items()}
     steps = 2 + warmup + repeats          # profile_training's steps per datapoint
     expected = sum(n_convs.values()) * len(GRID_BS) * steps
     path = ROOT / "build" / "repro_torch" / "cnn_profile_resnet50.json"
@@ -1189,19 +1227,8 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
     if launches != expected:
         raise AssertionError(f"conv_mm launches {launches} != {expected}")
     # the kernel against its plain version at every shape the grid gave it
-    # (after the count was read: these launches are not the main path's)
-    distinct = sorted({(bs, *k) for v in shapes.values() for k in v for bs in GRID_BS})
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    t1 = time.perf_counter()
-    err = 0.0
-    for N, H, W, C, K, O, s, p in distinct:
-        x, w = conv_inputs(gen, N, H, W, C, K, O, torch.float32)
-        err = max(err, conv_check(x, w, s, p))
-    del x, w
-    print(f"kernel conv_mm every shape of the grid ({len(distinct)} distinct "
-          f"(batch size, convolution) pairs over {len(shapes)} topologies) float32: "
-          f"max_abs_err={err:.3e} (rtol {CONV_TOL['float32'][0]}, atol "
-          f"{CONV_TOL['float32'][1]}) in {time.perf_counter() - t1:.1f} s")
+    err = check_conv_pairs(topology_pairs(topologies.values(), GRID_BS),
+                           f"every shape of the grid, {len(topologies)} topologies", 1)
     for name, spec in grids.items():
         for lv in spec.levels:
             row = [dp for dp in points[name] if dp.level == lv]
@@ -1288,15 +1315,11 @@ def cnn_phase() -> dict:
 # The cost engine, calibration and the §6.4 evolutionary search
 # ---------------------------------------------------------------------------
 
-# benchmarks/table2_case_study.py's protocol at full width: sub-networks
-# sampled from seeds 2000 + i, 10 to fit the inference forest and 6 to test
-# it, profiled for inference at four batch sizes and once for training at
-# the search's batch size; the reference runner's search size (the paper's
-# is population 100 x 500 iterations)
-N_TRAIN_SUB, N_TEST_SUB = 10, 6
-INFER_BS = (1, 2, 4, 8)
-SEARCH_TRAIN_BS, SEARCH_INFER_BS = 16, 1
-SEARCH = dict(population=32, iterations=40, seed=0)
+# The Table 2 runner's protocol (repro_torch.bench.table2_case_study) at
+# full width: sub-networks sampled from seeds 2000 + i, N_TRAIN_SUB to fit
+# the inference forest and N_TEST_SUB to test it, profiled for inference at
+# INFER_BS and once for training at the search's batch size; the reference
+# runner's search size (the paper's is population 100 x 500 iterations).
 # Every profile of the phase (sub-networks, winners) takes the median of
 # 10 steps after 2 warm-up steps: more than the reference runner's
 # profiler defaults (3 and 1 for inference, 2 and 1 for training), since
@@ -1305,9 +1328,6 @@ SEARCH = dict(population=32, iterations=40, seed=0)
 # convolution.
 PROFILE = dict(repeats=10, warmup=2)
 PROFILE_STEPS = 2 + PROFILE["warmup"] + PROFILE["repeats"]
-# a budgeted tier leaves at least this many candidates of the search's
-# first population feasible, as the engine predicts them
-FEASIBLE_FIRST = 4
 
 
 def search_fields(r) -> dict:
@@ -1333,6 +1353,9 @@ def engine_phase(cnn: dict) -> dict:
     repeated from its cache."""
     import torch
 
+    from repro_torch.bench.table2_case_study import (INFER_BS, N_TEST_SUB, N_TRAIN_SUB,
+                                                     SEARCH, SEARCH_INFER_BS, budget_tiers)
+    from repro_torch.bench.table2_case_study import TRAIN_BS as SEARCH_TRAIN_BS
     from repro_torch.core.dataset import DatasetCache
     from repro_torch.core.features import network_features
     from repro_torch.core.predictor import Perf4Sight, mape
@@ -1446,51 +1469,18 @@ def engine_phase(cnn: dict) -> dict:
     engine = CostEngine(EnsembleBackend([
         ForestBackend(train=cnn["forest"], infer=infer_model), analytical,
         ProfilerBackend(**PROFILE)]), cache=EstimateCache(str(path)))
-    bs_kw = dict(train_bs=SEARCH_TRAIN_BS, infer_bs=SEARCH_INFER_BS)
-    tiers = {"MAX": Constraints(**bs_kw)}
+    tiers = {"MAX": Constraints(train_bs=SEARCH_TRAIN_BS, infer_bs=SEARCH_INFER_BS)}
     tier_notes = {"MAX": "no budget"}
     measured = np.array([[r["gamma"] for r in train_rows],
                          [r["gamma"] for r in infer_rows if r["bs"] == SEARCH_INFER_BS],
                          [r["phi"] for r in infer_rows if r["bs"] == SEARCH_INFER_BS]])
-    # The search's first population (its rng draws it first from the seed)
-    # as the engine predicts it.  A budget at a quantile of the measurements
-    # can lie below every prediction (φ at bs 1 is host time on the card,
-    # which the forest does not follow), so each metric's budget is the
-    # larger of the quantile of the measurements and that of the predicted
-    # first population: then it binds on its own.  Together the three may
-    # leave no first candidate feasible, so the budget is raised uniformly,
-    # by the least factor that leaves FEASIBLE_FIRST of them feasible, and
-    # B's is held inside A's.
-    rng = np.random.default_rng(SEARCH["seed"])
-    first_w = [sample_subnetwork(base.widths, rng) for _ in range(SEARCH["population"])]
-    first = [build_resnet50(widths=w, input_hw=hw).conv_specs() for w in first_w]
-    first_fit = np.array([sum(w.values()) for w in first_w], dtype=float)
-    pred = np.array([[t.gamma_mb, i.gamma_mb, i.phi_ms] for t, i in zip(
-        engine.estimate([CostQuery(spec=n, bs=SEARCH_TRAIN_BS, stage="train") for n in first]),
-        engine.estimate([CostQuery(spec=n, bs=SEARCH_INFER_BS, stage="infer") for n in first]))])
-    best_first = {"MAX": first_fit.max()}
-    cap = np.full(3, np.inf)
-    for name, q in (("A", 50), ("B", 25)):
-        quant = np.maximum(np.percentile(measured, q, axis=1), np.percentile(pred, q, axis=0))
-        for raise_by in np.unique(np.append((pred / quant).max(axis=1), 1.0)):
-            budget = np.minimum(cap, quant * max(raise_by, 1.0))
-            feasible = (pred <= budget).all(axis=1)
-            if feasible.sum() >= FEASIBLE_FIRST:
-                break
-        else:
-            raise AssertionError(f"tier {name}: no budget leaves {FEASIBLE_FIRST} feasible")
-        cap = budget
-        best_first[name] = first_fit[feasible].max()
-        tiers[name] = Constraints(gamma_mb=float(budget[0]), gamma_inf_mb=float(budget[1]),
-                                  phi_inf_ms=float(budget[2]), **bs_kw)
-        tier_notes[name] = (
-            f"Γ <= {budget[0]:.2f} MB, γ <= {budget[1]:.2f} MB, φ <= {budget[2]:.4f} ms; "
-            f"the larger of the {'median' if q == 50 else '25th percentile'} of the "
-            f"sub-networks' measurements ({', '.join(f'{v:.4g}' for v in np.percentile(measured, q, axis=1))}) "
-            f"and of the predicted first population ({', '.join(f'{v:.4g}' for v in np.percentile(pred, q, axis=0))}), "
-            f"raised x{max(raise_by, 1.0):.4f}{' and held inside A' if name == 'B' else ''}: "
-            f"{int(feasible.sum())} first candidates feasible, the best of fitness "
-            f"{best_first[name]:.0f}")
+    # the Table 2 runner's budget rule: per metric the larger of a quantile of
+    # the measurements and of the engine's predicted first population, raised
+    # until 4 first candidates are feasible, B inside A
+    budgeted, notes, best_first, pred = budget_tiers(engine.estimate, measured,
+                                                     width_mult=wm, input_hw=hw)
+    tiers.update(budgeted)
+    tier_notes.update(notes)
     print("engine first population predicted (%d candidates): Γ %.1f-%.1f MB, γ %.2f-%.2f MB, "
           "φ %.4f-%.4f ms" % (len(pred), *np.ravel(list(zip(pred.min(0), pred.max(0))))))
     results = {}
@@ -1526,28 +1516,28 @@ def engine_phase(cnn: dict) -> dict:
         if not any(over):
             raise AssertionError(f"tier {name}'s budget does not bind the MAX winner")
 
-    # 4. each winner measured by the engine's chain: model-only queries fall
-    # through forest and analytical to the profiler.  Not through the
-    # engine's cache: a model-only query keys on the conv geometry, as the
-    # reference's does, so the search's own forest estimate of the winner
-    # answers it there (ROADMAP queue 3)
+    # 4. each winner measured through the engine: model-only queries fall
+    # through forest and analytical to the profiler (a winner met again, as
+    # two tiers' may be, is a hit on its measurement and profiles nothing)
     for name, r in results.items():
         tier = tiers[name]
         m = build_resnet50(widths=r.widths, input_hw=hw)
         qs = [CostQuery(model=m, bs=tier.train_bs, stage="train"),
               CostQuery(model=m, bs=tier.infer_bs, stage="infer")]
-        est_t, est_i = engine.backend.estimate(qs)
+        est_t, est_i = engine.estimate(qs)
         for e in (est_t, est_i):
             if e.source != "profiler":
                 raise AssertionError(f"tier {name} winner answered by {e.source}")
             positive(f"tier {name} winner measured", e.gamma_mb, e.phi_ms)
-            expected += len(conv_nodes(m)) * PROFILE_STEPS
+            if not e.detail.get("cached"):
+                expected += len(conv_nodes(m)) * PROFILE_STEPS
         meets = not (
             (tier.gamma_mb is not None and est_t.gamma_mb > tier.gamma_mb)
             or (tier.gamma_inf_mb is not None and est_i.gamma_mb > tier.gamma_inf_mb)
             or (tier.phi_inf_ms is not None and est_i.phi_ms > tier.phi_inf_ms))
-        print(f"engine tier {name} winner measured by the engine's chain (source "
-              f"{est_t.source}): Γ {est_t.gamma_mb:.2f} MB (predicted {r.gamma_mb:.2f}), "
+        print(f"engine tier {name} winner measured through the engine (source "
+              f"{est_t.source}, cached {bool(est_t.detail.get('cached'))}): "
+              f"Γ {est_t.gamma_mb:.2f} MB (predicted {r.gamma_mb:.2f}), "
               f"γ {est_i.gamma_mb:.2f} MB (predicted {r.gamma_inf_mb:.2f}), φ "
               f"{est_i.phi_ms:.4f} ms (predicted {r.phi_inf_ms:.4f}); measurement meets "
               f"the budget: {meets}")
@@ -1578,6 +1568,101 @@ def engine_phase(cnn: dict) -> dict:
     if launches != expected:
         raise AssertionError(f"engine phase conv_mm launches {launches} != {expected}")
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# The paper's benchmark runners
+# ---------------------------------------------------------------------------
+
+def bench_phase(cnn: dict) -> dict:
+    """Two of the paper runners (``repro_torch.bench``) at full width on the
+    card: §6.2.1's DNNMem comparison over the cnn phase's cache, which
+    holds every point it reads (0 profiled, 0 ``conv_mm`` launches), and
+    §6.2's strategy variation on a fresh cache, which profiles the
+    MobileNetV2 train grid and its 8 strategies.  Each runner reads its
+    own datapoints profiled and ``conv_mm`` launches around its work and
+    prints them on its ``<name>/card_s`` line; the phase gates on that
+    line.  Then ``conv_mm`` is held against its plain version at every
+    (batch size, shape) the strategies run gave it, and at every one that
+    the paper set (``bench.run``) gives it: each topology of
+    ``collect_cnn_data.all_grids`` at its batch sizes, seven families."""
+    import torch
+
+    from repro_torch.bench import common, dnnmem_comparison, strategy_variation
+    from repro_torch.bench.collect_cnn_data import all_grids
+    from repro_torch.core.dataset import DEFAULT_TRAIN_LEVELS, GridSpec, _build_pruned
+    from repro_torch.kernels.conv_mm.kernel import conv_mm_cuda
+
+    geo = common.FULL
+    steps = 2 + geo.warmup + geo.repeats          # profile_training's steps a profile
+    t0 = time.perf_counter()
+    lines: list[str] = []
+
+    def out(line: str) -> None:
+        print(f"bench {line}")
+        lines.append(line)
+
+    def tally(name: str) -> tuple[int, int]:
+        """(datapoints profiled, conv_mm launches) of ``<name>/card_s``."""
+        line = next(ln for ln in lines if ln.startswith(f"{name}/card_s,"))
+        fields = dict(f.split("=") for f in line.split(",", 2)[2].split())
+        return int(fields["profiled"]), int(fields["conv_mm_launches"])
+
+    torch.cuda.synchronize()
+    conv_mm_cuda.launches = 0
+    err = dnnmem_comparison.run(out, cache_path=cnn["cache"], geometry=geo)
+    profiled, launches = tally("dnnmem")
+    print(f"bench dnnmem over the cnn phase's cache {Path(cnn['cache']).relative_to(ROOT)}: "
+          f"profiled {profiled}, conv_mm launches {launches} (both must be 0)")
+    if profiled or launches:
+        raise AssertionError("dnnmem must run from the cnn phase's cache")
+    positive("dnnmem Γ error", err)
+
+    path = ROOT / "build" / "repro_torch" / "bench_strategies.json"
+    path.unlink(missing_ok=True)          # a fresh cache: every point is profiled
+    grid = GridSpec("mobilenetv2", DEFAULT_TRAIN_LEVELS, "random", geo.batch_sizes,
+                    geo.width_mult, geo.input_hw)
+    grid_models = [_build_pruned(grid, lv) for lv in grid.levels]
+    models = strategy_variation.strategy_models(geo)
+    expected = steps * (len(geo.batch_sizes) * sum(len(conv_nodes(m)) for m in grid_models)
+                        + sum(len(conv_nodes(m)) for m in models))
+    n_points = len(grid.levels) * len(geo.batch_sizes) + len(models)
+    torch.cuda.synchronize()
+    conv_mm_cuda.launches = 0
+    window = TunerWindow()
+    res = strategy_variation.run(out, cache_path=str(path), geometry=geo)
+    profiled, launches = tally("strategies")
+    window.report("bench strategies")
+    print(f"bench strategies MobileNetV2 width {geo.width_mult} {geo.input_hw}x"
+          f"{geo.input_hw}: {profiled} datapoints profiled (expected {n_points}: the "
+          f"train grid, {len(grid.levels)} levels x batch sizes {list(geo.batch_sizes)}, "
+          f"and {len(models)} strategies at bs {strategy_variation.BS}); conv_mm "
+          f"launches={launches} (expected {expected} = sum of groups=1 convolutions over "
+          f"the profiled topologies x profiles x {steps} steps)")
+    if profiled != n_points or launches != expected:
+        raise AssertionError(f"strategies: {profiled} datapoints, {launches} conv_mm "
+                             f"launches; expected {n_points} and {expected}")
+    positive("strategies results", *res.values())
+    for key, dp in json.loads(path.read_text()).items():
+        positive(f"strategies datapoint {key}", dp["gamma_mb"], dp["phi_ms"])
+        if len(dp["features"]) != 42:
+            raise AssertionError(f"strategies datapoint {key} has no features")
+
+    # the kernel against its plain version at the shapes of this slice's path
+    pairs = (topology_pairs(grid_models, geo.batch_sizes)
+             | topology_pairs(models, (strategy_variation.BS,)))
+    worst = check_conv_pairs(pairs, "every shape of the strategies run", 2)
+    paper: dict = {}
+    for g in all_grids(geo):
+        paper.setdefault(g.family, set()).update(
+            topology_pairs([_build_pruned(g, lv) for lv in g.levels], g.batch_sizes))
+    print("bench paper set: distinct (batch size, convolution) pairs per family: "
+          + ", ".join(f"{f} {len(v)}" for f, v in paper.items()))
+    worst = max(worst, check_conv_pairs(set().union(*paper.values()),
+                                        f"every shape of the paper set, {len(paper)} "
+                                        "families", 3))
+    print(f"bench phase done in {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "max_abs_err": worst}
 
 
 def main() -> int:
@@ -1641,6 +1726,7 @@ def main() -> int:
     reference_phase()
     cnn = cnn_phase()
     engine = engine_phase(cnn)
+    bench = bench_phase(cnn)
 
     kernels = [{
         "name": "paged_decode",
@@ -1657,7 +1743,8 @@ def main() -> int:
         "replaces": CONV_REPLACES,
         "launches": cnn["launches"],
         "engine_launches": engine["launches"],
-        "max_abs_err": cnn["max_abs_err"],
+        "bench_launches": bench["launches"],
+        "max_abs_err": max(cnn["max_abs_err"], bench["max_abs_err"]),
         **conv_timing,
     }, {
         "name": "flash_attention",

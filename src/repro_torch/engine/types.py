@@ -12,8 +12,11 @@ N scalar round-trips (paper §6.4's 200× search-speed argument, kept honest
 at population scale).
 
 Framework-free and held exactly against the reference: ``CostQuery.key``
-is the reference's content hash, so an estimate cache written by either
-package is keyed the same way in the other.
+is the reference's content hash for spec and arch queries, so an estimate
+cache written by either package is keyed the same way in the other.  A
+model-only query of a CNN departs on purpose: its key marks it as one, so
+a measurement is never answered by the cached forest estimate of the spec
+query of the same geometry (the reference's keys alias the two).
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ class CostQuery:
     def key(self) -> str:
         """Content key: stable across processes, independent of spec naming
         (two specs with identical layer geometry share estimates)."""
+        extra = {}
         if self.spec is not None:
             ident = _geometry(self.spec)
         elif self.arch is not None:
@@ -88,13 +92,18 @@ class CostQuery:
             conv_specs = getattr(self.model, "conv_specs", None)
             if callable(conv_specs):
                 ident = _geometry(conv_specs())
+                # Departs from the reference's key on purpose: a model-only
+                # query asks for a measurement (only the profiler answers
+                # it), so it must not share an entry with the spec query of
+                # the same geometry, which a forest answers.
+                extra = {"model": True}
             else:
                 ident = [getattr(self.model, "name", repr(type(self.model))),
                          sorted(getattr(self.model, "widths", {}).items())]
         blob = json.dumps(
             {"id": ident, "bs": self.bs, "stage": self.stage,
              "seq": self.seq if self.arch is not None else None,
-             "reduced": self.reduced if self.arch is not None else None},
+             "reduced": self.reduced if self.arch is not None else None, **extra},
             sort_keys=True,
         )
         return hashlib.sha1(blob.encode()).hexdigest()

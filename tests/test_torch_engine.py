@@ -119,9 +119,11 @@ def test_spec_query_key_identical(family, level, stage):
         mine = CostQuery(spec=m.conv_specs(), bs=bs, stage=stage)
         ref = ref_types.CostQuery(spec=r.conv_specs(), bs=bs, stage=stage)
         assert mine.key == ref.key
-        # model-only queries key on the conv geometry too
-        assert CostQuery(bs=bs, stage=stage, model=m).key == \
-            ref_types.CostQuery(bs=bs, stage=stage, model=r).key == mine.key
+        # model-only queries key on the conv geometry too, but the port's
+        # marks them as model-only (a departure from the reference's key,
+        # whose model-only key aliases the spec key of the same geometry)
+        assert CostQuery(bs=bs, stage=stage, model=m).key != mine.key
+        assert ref_types.CostQuery(bs=bs, stage=stage, model=r).key == ref.key
 
 
 def test_full_width_resnet50_key_identical():
@@ -545,6 +547,25 @@ def test_engine_without_cache(spec_pairs):
     eng.estimate([CostQuery(spec=m, bs=2)])
     assert (eng.hits, eng.misses, stub.calls) == (0, 3, 2)
     eng.flush()
+
+
+def test_model_only_query_after_a_spec_query_reaches_the_profiler(predictors, tmp_path):
+    """A model-only query asks for a measurement: after the spec query of
+    the same geometry (answered by the forest and cached), it misses the
+    cache and falls through to the profiler; its repeat is a hit."""
+    mine_p, _ = predictors
+    m = pruning.pruned_model("resnet50", 0.5, "random", width_mult=0.125, input_hw=16)
+    eng = CostEngine(EnsembleBackend([ForestBackend(train=mine_p),
+                                      ProfilerBackend(repeats=1, warmup=0, device="cpu")]),
+                     cache=str(tmp_path / "estimates.json"))
+    spec_est, = eng.estimate([CostQuery(spec=m.conv_specs(), bs=2)])
+    measured, = eng.estimate([CostQuery(bs=2, model=m)])
+    assert (spec_est.source, measured.source) == ("forest", "profiler")
+    assert (eng.hits, eng.misses) == (0, 2)
+    again, = eng.estimate([CostQuery(bs=2, model=m)])
+    assert (eng.hits, eng.misses) == (1, 2)
+    assert again.source == "profiler" and again.detail["cached"] is True
+    assert (again.gamma_mb, again.phi_ms) == (measured.gamma_mb, measured.phi_ms)
 
 
 # ---------------------------------------------------------------------------
