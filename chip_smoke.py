@@ -42,7 +42,22 @@ Phases (any failure raises and the script exits non-zero):
    model on the CPU (the port's plain path); launches the tuner makes
    inside this window (a prefill shape it has not seen) are counted
    apart and printed;
-6. cnn — the paper's toolflow: one training step of a reduced ResNet-50
+6. train — the LM training path: one ``loss_fn`` + backward of a reduced
+   internlm2-1.8b in f32 on the card against the CPU (TF32 off), every
+   gradient leaf; ``warm_autotune(stages=("train",))`` for full-width
+   internlm2-1.8b at batch 4 over 2048 tokens on the tune phase's tuner,
+   which times the flash kernel at that new shape (four launches per
+   timed config, none on the main path), then the kernel against its
+   plain version there and timed; ``Trainer`` trains full-width
+   internlm2-1.8b (random weights from seed 0, bf16, AdamW) for 6 steps:
+   per-step time, loss, tokens/s, MFU, the state's memory against its
+   reckoning, the peak, flash attention's main-path launches (0: training
+   attention is ``blocked_attention``, as in the reference), the loss with
+   ``seq_chunk=512`` beside the unchunked one and a traced step; then the
+   trained state at the reference's training sequence length, batch 2
+   over 4096 tokens (timed steps, the peak and a traced step); a reduced
+   checkpoint saved on the card and restored bit for bit;
+7. cnn — the paper's toolflow: one training step of a reduced ResNet-50
    on the card against the CPU; then full-width ResNet-50 (32x32,
    CIFAR-100) pruned, profiled for Γ and Φ over the paper's train levels
    and the default test levels at five batch sizes (``collect_grid``),
@@ -51,7 +66,7 @@ Phases (any failure raises and the script exits non-zero):
    convolution shape) the grid gave it; the predictor fitted on the
    train points and its Γ/Φ error printed for each test grid; and a
    traced step at batch 128 (where the time goes);
-7. engine — paper §6.4 through the cost engine: an analytical spec of
+8. engine — paper §6.4 through the cost engine: an analytical spec of
    this card calibrated on the cnn phase's train grid (every workload
    from the cnn phase's cache, none profiled) and the tuner's timed
    winners; 16 full-width ResNet-50 sub-networks (seeds 2000 + i)
@@ -64,7 +79,7 @@ Phases (any failure raises and the script exits non-zero):
    measured through the engine (model-only queries, answered by the
    profiler); tier A repeated (same result, no new miss); the convolution
    kernel's launch count read around the phase;
-8. bench — two paper runners of ``repro_torch.bench`` at full width: the
+9. bench — two paper runners of ``repro_torch.bench`` at full width: the
    §6.2.1 DNNMem comparison over the cnn phase's cache (0 profiled, 0
    convolution kernel launches) and the §6.2 strategy variation on a fresh
    cache (the MobileNetV2 train grid and 8 strategies profiled, the kernel's
@@ -73,7 +88,8 @@ Phases (any failure raises and the script exits non-zero):
    against its plain version at every (batch size, convolution shape) the
    strategies run gave it and at every one the full paper set
    (``python -m repro_torch.bench.run``) gives it, seven families;
-9. a ``{"kernels": [...]}`` JSON line, the card line again, and last
+10. a ``{"kernels": [...]}`` JSON line (the flash entry with the train
+   phase's ``train_*`` numbers), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it fails
@@ -575,6 +591,380 @@ def reference_phase() -> None:
           f"max_abs_err={err:.3e} (tol 2e-3)")
     if not err <= 2e-3:
         raise AssertionError(f"card disagrees with the CPU path: {err}")
+
+
+# ---------------------------------------------------------------------------
+# Training: loss_fn, the optimizer, the Trainer and its checkpoints
+# ---------------------------------------------------------------------------
+
+# full-width internlm2-1.8b (the reference launcher's model) trained at
+# batch 4 over 2048 tokens for 6 steps, bf16, AdamW, seed 0
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "internlm2-1.8b", 4, 2048, 6
+# then steps at the sequence length of the reference's training shape
+# (train_4k), with the same 8192 tokens a step: one warm-up, 3 timed, 1 traced
+TRAIN_REF_BATCH, TRAIN_REF_SEQ, TRAIN_REF_STEPS = 2, 4096, 3
+# card against CPU, reduced internlm2-1.8b in f32 with TF32 off: both sum
+# in f32 in other orders (the embedding's backward with atomics on the
+# card), which moves a gradient by ~1e-6 of its norm
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# memory after init_state against bf16 params + bf16 grads + f32 m and v
+TRAIN_STATE_TOL = 0.02
+# the chunked loss against the unchunked one on the same state, relative:
+# both round the same bf16 logits and sum in f32 in other orders; one
+# unmasked pad position per row (S-1 = 2047 pads to 2048) moves it ~2e-5
+TRAIN_CHUNK_TOL = 1e-5
+
+
+def flat_leaves(tree: dict, path: tuple = ()) -> dict:
+    """{"a/b/c": leaf} of nested dicts."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, path + (k,)))
+        else:
+            out["/".join(path + (k,))] = v
+    return out
+
+
+def train_grad_check() -> None:
+    """(a) One ``loss_fn`` + backward of reduced internlm2-1.8b in f32 on
+    the card and on the CPU (TF32 off): the loss within
+    ``TRAIN_LOSS_TOL`` relative, every gradient leaf within
+    ``TRAIN_GRAD_TOL`` of its norm."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import grads_to_numpy
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(TRAIN_ARCH, reduced=True)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab, (2, 64)).astype(np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = T.init_params(cfg, 0, device=dev, dtype=torch.float32).requires_grad_(True)
+        loss, _ = T.loss_fn(model, {"tokens": torch.tensor(tokens, device=dev)}, cfg)
+        loss.backward()
+        out[dev] = (loss.item(), flat_leaves(grads_to_numpy(model, cfg)))
+    loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    errs = {k: float(np.linalg.norm(out["cuda"][1][k] - g) / np.linalg.norm(g))
+            for k, g in out["cpu"][1].items()}
+    worst = max(errs, key=errs.get)
+    print(f"train reduced {TRAIN_ARCH} f32 loss_fn + backward, card vs CPU (TF32 off): "
+          f"loss {out['cuda'][0]:.6f} / {out['cpu'][0]:.6f}, relative error "
+          f"{loss_err:.3e} (tol {TRAIN_LOSS_TOL}); {len(errs)} gradient leaves, worst "
+          f"{worst} at {errs[worst]:.3e} of its norm (tol {TRAIN_GRAD_TOL})")
+    if not (loss_err <= TRAIN_LOSS_TOL and errs[worst] <= TRAIN_GRAD_TOL):
+        raise AssertionError("the card's training gradients disagree with the CPU's")
+
+
+def train_tune_check() -> dict:
+    """(b) ``warm_autotune(stages=("train",))`` for full-width
+    internlm2-1.8b at the training shape on the tuner the tune phase
+    installed: (4, 16/8, 2048, 128, causal, bf16) is a new flash shape, so
+    it is timed (four launches per config, none on the main path); then
+    the kernel against its plain version there, and kernel, plain version,
+    ``scaled_dot_product_attention`` and the bound timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import tiling as flash_tiling
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(TRAIN_ARCH)
+    tuner, kernel = autotune.get_tuner(), flash_attention_cuda
+    timed, tuner_launches, launches = tuner.timed, kernel.tuner_launches, kernel.launches
+    warm = T.warm_autotune(cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                           stages=("train",))
+    timed = tuner.timed - timed
+    tuner_launches = kernel.tuner_launches - tuner_launches
+    B, H, Hkv, S, Dh = TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, cfg.head_dim_
+    key = flash_tiling.shape_key((B, H, S, Dh), (B, Hkv, S, Dh), causal=True, dtype=T.DTYPE)
+    entry = [e for e in tuner.cache.entries()
+             if e["kernel"] == "flash_attention" and e["shape"] == key]
+    print(f"train tune warm_autotune({TRAIN_ARCH}, batch {B}, seq {S}, train) -> {warm}; "
+          f"flash_attention {json.dumps(key, sort_keys=True)}: {timed} configs timed -> "
+          f"tuner_launches={tuner_launches} (expected {4 * timed}), main-path launches "
+          f"{kernel.launches - launches}; entry {entry}")
+    if not (tuner_launches == 4 * timed > 0 and kernel.launches == launches
+            and len(entry) == 1 and entry[0]["source"] == "timed"):
+        raise AssertionError("the training shape was not timed by the tuner as counted")
+    config = tuner.tune("flash_attention", key)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    err, (q, k, v, _) = flash_check(gen, f"{TRAIN_ARCH} training shape (tuned)", B, H, Hkv,
+                                    S, S, Dh, torch.bfloat16, **config)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v, **config), flush, 10, 2)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v), flush, 5, 1)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
+                         flush, 10, 2)
+    del flush, q, k, v, kr, vr
+    flops = 4 * B * H * S * S * Dh * 0.5
+    nbytes = 2 * (2 * B * H * S * Dh + 2 * B * Hkv * S * Dh)
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    print(f"timing flash_attention {TRAIN_ARCH} training shape B={B} H={H} Hkv={Hkv} "
+          f"S={S} Dh={Dh} bf16 causal at {config}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}) -> "
+          f"{bound_ms / ms:.1%} of bound")
+    return {"train_launches": tuner_launches, "train_max_abs_err": err, "train_ms": ms,
+            "train_plain_ms": plain_ms, "train_bound_ms": bound_ms,
+            "train_library_ms": library_ms}
+
+
+# kernel classes of a training step, by kernel name, first match wins
+STEP_CLASSES = [
+    ("f32 GEMMs (attention scores)", r"sgemm|gemm_f32f32_f32f32|nvjet_sss"),
+    ("bf16 GEMMs", r"gemm|nvjet|cutlass|xmma"),
+    ("dtype casts and copies", r"copy"),
+    ("softmax", r"softmax"),
+    ("other elementwise and reductions", r"elementwise|reduce"),
+]
+
+
+def train_model_flops(cfg, n: int, batch: int, seq: int) -> tuple[float, float]:
+    """(model FLOPs of one step, of which causal attention): 6·N·T plus
+    the causal QK and PV products, forward and backward."""
+    attn = 3 * 4 * batch * cfg.n_heads * seq ** 2 * cfg.head_dim_ * 0.5 * cfg.n_layers
+    return 6 * n * batch * seq + attn, attn
+
+
+def train_step_breakdown(trainer, state, batch, step_ms: float) -> None:
+    """Where one full-width training step's device time goes: one step
+    traced with ``torch.profiler``, kernels summed by name into the
+    classes of ``STEP_CLASSES``; the device's idle share against the
+    untraced step time ``step_ms`` (tracing slows the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer._step(state, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    dev_ms = sum(kernels.values())
+    if not dev_ms > 0:
+        raise AssertionError("the profiler saw no device time")
+    classes = {label: 0.0 for label, _ in STEP_CLASSES}
+    classes["other"] = 0.0
+    for name, t in kernels.items():
+        label = next((lb for lb, rx in STEP_CLASSES if re.search(rx, name, re.I)), "other")
+        classes[label] += t
+    B, S = batch["tokens"].shape
+    print(f"train step {TRAIN_ARCH} B={B} S={S}: device kernel time "
+          f"{dev_ms:.1f} ms in one traced step (host wall {wall_ms:.1f} ms traced, "
+          f"{step_ms:.1f} ms untraced: device idle {1 - dev_ms / step_ms:.1%} of the "
+          f"untraced step); " + ", ".join(
+              f"{label} {t:.1f} ms ({t / dev_ms:.1%})" for label, t in classes.items()))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    print("train step top kernels (ms/step): " + "; ".join(
+        f"{k[:80]} {t:.2f}" for k, t in top))
+
+
+def train_full() -> dict:
+    """(c) ``Trainer`` trains full-width internlm2-1.8b (bf16, AdamW, seed
+    0) for ``TRAIN_STEPS`` steps at B 4 x S 2048: per-step time, loss and
+    ce, tokens/s, MFU (model FLOPs 6·N·T plus causal attention over 989
+    TFLOP/s), memory after ``init_state`` against the state's reckoning and
+    the peak; the flash kernel's main-path launches must stay 0 (training
+    attention is ``blocked_attention``, as in the reference).  Then one
+    ``loss_fn`` + backward unchunked and with ``seq_chunk=512`` on the
+    trained state, a traced step, and the steps of
+    :func:`train_reference_seq`."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import batch_to_device, make_batch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    trainer = Trainer(cfg, shape, tcfg=TrainerConfig(seed=0), device="cuda")
+    n = cfg.param_count()
+    reckoned = n * (2 + 2 + 4 + 4)          # bf16 params and grads, f32 m and v
+    mem = {}
+    init = trainer.init_state
+
+    def measured_init():
+        t0 = time.perf_counter()
+        state = init()
+        torch.cuda.synchronize()
+        mem["init_s"] = time.perf_counter() - t0
+        mem["state"] = torch.cuda.memory_allocated() - mem["base"]
+        torch.cuda.reset_peak_memory_stats()
+        return state
+
+    trainer.init_state = measured_init
+    torch.cuda.synchronize()
+    mem["base"] = torch.cuda.memory_allocated()
+    flash_attention_cuda.launches = 0
+    window = TunerWindow()
+    t0 = time.perf_counter()
+    out = trainer.train(TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem["base"]
+    window.report("train")
+    launches = flash_attention_cuda.launches
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops, attn_flops = train_model_flops(cfg, n, TRAIN_BATCH, TRAIN_SEQ)
+    hist = out["history"]
+    for h in hist:
+        print(f"train step {h['step']}: dt {h['dt'] * 1e3:.1f} ms, loss {h['loss']:.6f}, "
+              f"ce {h['ce']:.6f}, {tokens / h['dt']:.0f} tokens/s, MFU "
+              f"{model_flops / (h['dt'] * BF16_FLOPS):.2%}")
+    steady = statistics.median(h["dt"] for h in hist[1:])
+    print(f"train {TRAIN_ARCH} full width ({n / 1e9:.4f}e9 parameters, vocab "
+          f"{cfg.vocab} padded {cfg.padded_vocab()}) B={TRAIN_BATCH} S={TRAIN_SEQ} bf16 "
+          f"AdamW seed 0: init_state {mem['init_s']:.1f} s, {TRAIN_STEPS} steps in "
+          f"{wall:.1f} s; median step after the first {steady * 1e3:.1f} ms = "
+          f"{tokens / steady:.0f} tokens/s, MFU {model_flops / (steady * BF16_FLOPS):.2%} "
+          f"(model FLOPs {model_flops:.4e}/step: 6·N·T {6 * n * tokens:.4e} + causal "
+          f"attention {attn_flops:.4e}); memory after init_state {mem['state'] / 1e9:.3f} "
+          f"GB against {reckoned / 1e9:.3f} GB reckoned (bf16 params + bf16 grads + f32 "
+          f"m, v), max_memory_allocated {peak / 1e9:.3f} GB; flash_attention main-path "
+          f"launches {launches}")
+    if not all(np.isfinite([h["loss"], h["ce"]]).all() for h in hist) or len(hist) != TRAIN_STEPS:
+        raise AssertionError(f"training losses not finite: {hist}")
+    if not abs(mem["state"] - reckoned) <= TRAIN_STATE_TOL * reckoned:
+        raise AssertionError(f"state memory {mem['state']} is not {reckoned} within 2%")
+    if launches != 0:
+        raise AssertionError(f"the training step launched flash attention {launches} times")
+
+    state = out["state"]
+    model = state["params"]
+    batch = batch_to_device(make_batch(cfg, shape, TRAIN_STEPS, 0), torch.device("cuda"))
+    losses = {}
+    for chunk in (None, 512):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = T.loss_fn(model, batch, cfg, seq_chunk=chunk)
+        loss.backward()
+        torch.cuda.synchronize()
+        losses[chunk] = (loss.item(), torch.cuda.max_memory_allocated() - mem["base"])
+        del loss
+    gap = abs(losses[512][0] - losses[None][0]) / abs(losses[None][0])
+    print(f"train loss_fn + backward on the trained state, batch of step {TRAIN_STEPS}: "
+          f"unchunked loss {losses[None][0]:.6f}, peak {losses[None][1] / 1e9:.3f} GB; "
+          f"seq_chunk=512 loss {losses[512][0]:.6f}, peak {losses[512][1] / 1e9:.3f} GB; "
+          f"relative difference {gap:.3e} (tol {TRAIN_CHUNK_TOL})")
+    if not (np.isfinite(losses[512][0]) and gap <= TRAIN_CHUNK_TOL):
+        raise AssertionError("the chunked loss disagrees with the unchunked one")
+    train_step_breakdown(trainer, state, batch, steady * 1e3)
+    train_reference_seq(trainer, state, mem["base"])
+    return {"steps": len(hist), "flash_launches": launches}
+
+
+def train_reference_seq(trainer, state, base: int) -> None:
+    """Steps of the trained state at the reference's training sequence
+    length, B 2 x S 4096 (the same tokens a step): the tuner first, as the
+    launcher does (its timing counted apart), then one warm-up step,
+    ``TRAIN_REF_STEPS`` timed, the peak memory, and a traced step; the
+    flash kernel's main-path launches stay 0."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import batch_to_device, make_batch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models import transformer as T
+
+    cfg, B, S = trainer.cfg, TRAIN_REF_BATCH, TRAIN_REF_SEQ
+    shape = ShapeSpec("train_4k", S, B, "train")
+    window = TunerWindow()
+    T.warm_autotune(cfg, batch_size=B, seq_len=S, stages=("train",))
+    window.report(f"train B={B} S={S} tuning")
+    launches = flash_attention_cuda.launches
+    batches = [batch_to_device(make_batch(cfg, shape, TRAIN_STEPS + 1 + i, 0),
+                               torch.device("cuda")) for i in range(TRAIN_REF_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dts, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        _, metrics = trainer._step(state, batch)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() - base
+    steady = statistics.median(dts[1:])
+    model_flops, attn_flops = train_model_flops(cfg, cfg.param_count(), B, S)
+    print(f"train {TRAIN_ARCH} full width B={B} S={S} (the reference's train_4k sequence "
+          f"length) on the trained state: steps {', '.join(f'{d * 1e3:.1f}' for d in dts)} "
+          f"ms (the first a warm-up), median {steady * 1e3:.1f} ms = {B * S / steady:.0f} "
+          f"tokens/s, MFU {model_flops / (steady * BF16_FLOPS):.2%} (model FLOPs "
+          f"{model_flops:.4e}/step, causal attention {attn_flops:.4e}); losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; max_memory_allocated "
+          f"{peak / 1e9:.3f} GB; flash_attention main-path launches "
+          f"{flash_attention_cuda.launches - launches}")
+    if not (np.isfinite(losses).all() and flash_attention_cuda.launches == launches):
+        raise AssertionError(f"S={S} steps: losses {losses}, flash launches "
+                             f"{flash_attention_cuda.launches - launches}")
+    train_step_breakdown(trainer, state, batches[-1], steady * 1e3)
+
+
+def train_checkpoint_check() -> None:
+    """(d) A checkpoint of reduced internlm2-1.8b saved on the card by the
+    ``Trainer`` after two steps and restored by a fresh one: every leaf
+    (bf16 parameters, f32 m and v, int32 step) equal bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import train_state_to_tree
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH, reduced=True)
+    shape = ShapeSpec("ck", 64, 2, "train")
+    root = ROOT / "build" / "repro_torch"
+    root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        tcfg = TrainerConfig(ckpt_dir=d, ckpt_every=100, grad_compression=0.25)
+        out = Trainer(cfg, shape, tcfg=tcfg, device="cuda").train(2)
+        start, restored = Trainer(cfg, shape, tcfg=tcfg, device="cuda").restore_or_init()
+        saved = train_state_to_tree(out["state"], cfg)
+        back = train_state_to_tree(restored, cfg)
+    saved, back = flat_leaves(saved), flat_leaves(back)
+    leaves = {k: sorted(saved) == sorted(back) and t.dtype == back[k].dtype
+              and torch.equal(t, back[k]) for k, t in saved.items()}
+    on_card = next(restored["params"].parameters()).device
+    print(f"train checkpoint reduced {TRAIN_ARCH} (gradient compression on), saved on "
+          f"the card after 2 steps, restored at step {start} on {on_card}: "
+          f"{sum(leaves.values())}/{len(leaves)} leaves equal bit for bit")
+    if not (start == 2 and on_card.type == "cuda" and all(leaves.values())):
+        raise AssertionError(f"checkpoint round trip not exact: "
+                             f"{[k for k, ok in leaves.items() if not ok]}")
+
+
+def train_phase() -> dict:
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    train_grad_check()
+    tuned = train_tune_check()
+    full = train_full()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_checkpoint_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train phase done in {time.perf_counter() - t0:.1f} s; memory_allocated "
+          f"after {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    return {**tuned, **full}
 
 
 # ---------------------------------------------------------------------------
@@ -1724,6 +2114,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     served = serve_phase()
     reference_phase()
+    trained = train_phase()
     cnn = cnn_phase()
     engine = engine_phase(cnn)
     bench = bench_phase(cnn)
@@ -1753,6 +2144,12 @@ def main() -> int:
         "replaces": FLASH_REPLACES,
         "launches": tuned["launches"]["flash_attention"],
         **flash_timing,
+        "train_launches": trained["train_launches"],
+        "train_max_abs_err": trained["train_max_abs_err"],
+        "train_ms": trained["train_ms"],
+        "train_plain_ms": trained["train_plain_ms"],
+        "train_bound_ms": trained["train_bound_ms"],
+        "train_library_ms": trained["train_library_ms"],
     }, {
         "name": "ssd_chunk",
         "route": "cuda",

@@ -1,9 +1,10 @@
 """Architecture configuration: the frozen :class:`ArchConfig`.
 
 Port of ``repro/configs/base.py``.  This slice keeps ``ArchConfig``
-whole (``reduced()``, ``padded_vocab``, ``head_dim_``, ``param_count``);
-the workload shapes (``ShapeSpec``, ``SHAPES``) and ``mesh_split`` come
-with the slices that use them.
+whole (``reduced()``, ``padded_vocab``, ``head_dim_``, ``param_count``)
+and ``ShapeSpec``, the workload shape the data pipeline and the trainer
+take; the named shapes (``SHAPES``) and ``mesh_split`` come with the
+slices that use them.
 
 ``reduced()`` derives the same-family smoke-test config (small layers/width,
 few experts, tiny vocab) that runs a real step on CPU.
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-__all__ = ["ArchConfig"]
+__all__ = ["ArchConfig", "ShapeSpec"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -154,3 +155,15 @@ class ArchConfig:
             n_audio_frames=16 if self.n_audio_frames else 0,
             max_seq_len=256,
         )
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch

@@ -13,7 +13,16 @@ the port keeps one :class:`~repro_torch.models.transformer.Block` per
 layer.  Both keep ``(in, out)`` weights used as ``x @ W``, so conversion
 is a copy that unstacks (or restacks) the layer axis.  Arrays are read
 through ``np.asarray(leaf, np.float32)``, which is exact for the
-reference's bf16 leaves.
+reference's bf16 leaves; tensors are copied as they are.
+
+A training state carries the same layout: the reference's
+``{"params", "opt": {"step", "m", "v"}, "err"}`` holds the slots as
+parameter trees, the port's (``repro_torch.train.trainer``) an
+:class:`~repro_torch.models.transformer.LM` and the slots as dicts keyed
+by the model's parameter names (``blocks.3.attn.wq``).
+:func:`train_state_to_tree` restacks a port state into the reference's
+tree with tensor leaves (what the checkpoint writes),
+:func:`train_state_from_jax` unstacks one into a port state.
 """
 
 from __future__ import annotations
@@ -23,10 +32,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import LM, param_leaves, param_of
+from repro_torch.models.transformer import LM, param_leaves
 
-__all__ = ["params_from_jax", "params_to_numpy", "cnn_params_from_numpy",
-           "cnn_params_to_numpy", "tree_map", "tree_leaves"]
+__all__ = ["params_from_jax", "params_to_numpy", "grads_to_numpy",
+           "train_state_from_jax", "train_state_to_tree", "train_state_to_numpy",
+           "cnn_params_from_numpy", "cnn_params_to_numpy", "tree_map", "tree_leaves"]
 
 
 def _get(tree, path):
@@ -35,35 +45,21 @@ def _get(tree, path):
     return tree
 
 
-@torch.no_grad()
-def params_from_jax(tree, cfg: ArchConfig, *, device="cuda",
-                    dtype=torch.bfloat16) -> LM:
-    """The reference's parameter tree (numpy leaves) → an :class:`LM`."""
-    model = LM(cfg, dtype=dtype, device=device)
-    for path, shape in param_leaves(cfg):
-        leaf = np.asarray(_get(tree, path), np.float32)
-        if leaf.shape != tuple(shape):
-            raise ValueError(f"{'/'.join(path)}: shape {leaf.shape} != "
-                             f"{tuple(shape)}")
-        if path[0] == "blocks":
-            for layer in range(shape[0]):
-                param_of(model, path, layer).copy_(torch.from_numpy(leaf[layer]))
-        else:
-            param_of(model, path).copy_(torch.from_numpy(leaf))
-    return model
+def _name(path: tuple[str, ...], layer: int | None) -> str:
+    """The port's parameter name of a reference path (and layer)."""
+    return ".".join(("blocks", str(layer), *path[2:])) if path[0] == "blocks" else path[0]
 
 
-@torch.no_grad()
-def params_to_numpy(model: LM, cfg: ArchConfig) -> dict:
-    """An :class:`LM` → the reference's tree layout, float32 numpy leaves
-    (block leaves restacked on the layer axis)."""
+def _restack(named: dict, cfg: ArchConfig) -> dict:
+    """Tensors keyed by parameter name → the reference's tree, block
+    leaves stacked on the layer axis; CPU tensors in their own dtypes."""
     tree: dict = {}
     for path, shape in param_leaves(cfg):
         if path[0] == "blocks":
-            leaf = np.stack([param_of(model, path, layer).float().cpu().numpy()
-                             for layer in range(shape[0])])
+            leaf = torch.stack([named[_name(path, layer)].detach().cpu()
+                                for layer in range(shape[0])])
         else:
-            leaf = param_of(model, path).float().cpu().numpy()
+            leaf = named[_name(path, None)].detach().cpu()
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -71,13 +67,99 @@ def params_to_numpy(model: LM, cfg: ArchConfig) -> dict:
     return tree
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of nested dicts, lists and tuples."""
+@torch.no_grad()
+def _unstack(tree, cfg: ArchConfig, named: dict) -> None:
+    """Copy the reference's tree (numpy, JAX or tensor leaves) into the
+    tensors keyed by parameter name, one layer slice at a time."""
+    for path, shape in param_leaves(cfg):
+        leaf = _get(tree, path)
+        if not torch.is_tensor(leaf):
+            leaf = torch.from_numpy(np.asarray(leaf, np.float32))
+        if tuple(leaf.shape) != tuple(shape):
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(leaf.shape)} != "
+                             f"{tuple(shape)}")
+        for layer in range(shape[0]) if path[0] == "blocks" else [None]:
+            named[_name(path, layer)].copy_(leaf if layer is None else leaf[layer])
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.is_floating_point() else t).numpy()
+
+
+def params_from_jax(tree, cfg: ArchConfig, *, device="cuda",
+                    dtype=torch.bfloat16) -> LM:
+    """The reference's parameter tree (numpy leaves) → an :class:`LM`."""
+    model = LM(cfg, dtype=dtype, device=device)
+    _unstack(tree, cfg, dict(model.named_parameters()))
+    return model
+
+
+def params_to_numpy(model: LM, cfg: ArchConfig) -> dict:
+    """An :class:`LM` → the reference's tree layout, float32 numpy leaves
+    (block leaves restacked on the layer axis)."""
+    return tree_map(_numpy, _restack(dict(model.named_parameters()), cfg))
+
+
+def grads_to_numpy(model: LM, cfg: ArchConfig) -> dict:
+    """The model's ``.grad`` tensors in the layout of the reference's
+    gradient tree, float32 numpy leaves."""
+    return tree_map(_numpy, _restack(
+        {n: p.grad for n, p in model.named_parameters()}, cfg))
+
+
+def train_state_to_tree(state: dict, cfg: ArchConfig) -> dict:
+    """A port training state → the reference's state tree, CPU tensor
+    leaves in their own dtypes (bf16 parameters, f32 slots, int32 step)."""
+    opt = state["opt"]
+    tree = {"params": _restack(dict(state["params"].named_parameters()), cfg),
+            "opt": {"step": opt["step"].detach().cpu(),
+                    **{k: _restack(opt[k], cfg) for k in ("m", "v") if k in opt}}}
+    if "err" in state:
+        tree["err"] = _restack(state["err"], cfg)
+    return tree
+
+
+def train_state_to_numpy(state: dict, cfg: ArchConfig) -> dict:
+    """:func:`train_state_to_tree` with numpy leaves: float32, and the
+    int32 step."""
+    return tree_map(_numpy, train_state_to_tree(state, cfg))
+
+
+def train_state_from_jax(tree: dict, cfg: ArchConfig, *, device="cuda",
+                         dtype=torch.bfloat16) -> dict:
+    """The reference's state tree (numpy, JAX or tensor leaves: a
+    reference ``Trainer`` state or a restored checkpoint) → a port state
+    on ``device``: the parameters in ``dtype``, the slots f32, ``step``
+    int32."""
+    model = params_from_jax(tree["params"], cfg, device=device, dtype=dtype)
+    dev = next(model.parameters()).device
+
+    def slots(sub):
+        named = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                 for n, p in model.named_parameters()}
+        _unstack(sub, cfg, named)
+        return named
+
+    step = tree["opt"]["step"]
+    step = (step if torch.is_tensor(step) else torch.from_numpy(np.asarray(step)))
+    state = {"params": model,
+             "opt": {"step": step.to(device=dev, dtype=torch.int32),
+                     **{k: slots(tree["opt"][k]) for k in ("m", "v")
+                        if k in tree["opt"]}}}
+    if "err" in tree:
+        state["err"] = slots(tree["err"])
+    return state
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to every leaf of nested dicts, lists and tuples, and
+    to the leaves at the same place in the trees ``rest`` of the same
+    structure (dicts by key, lists and tuples by position)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:

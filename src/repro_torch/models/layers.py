@@ -12,9 +12,14 @@ the caller passes none (``_tuned_attention_block_q``): it shares the
 flash-attention tiling model and cache, as in the reference.
 
 Parameters keep the JAX layout: ``(in, out)`` weights used as ``x @ W``.
-Caches are updated in place (``index_put_`` / slice assignment) where the
-JAX package returns a new buffer that the jit donates; ``attention_block``
-still returns ``(out, cache)`` with the same cache object.
+They are built with ``requires_grad=False`` (serving builds no graph); a
+trainer turns them on for its own model.  Every function here is then
+differentiable on the no-cache path: nothing writes in place into a
+tensor that autograd saved.  Caches are updated in place (``index_put_``
+/ slice assignment) where the JAX package returns a new buffer that the
+jit donates — only the serving path, under ``no_grad``, writes them;
+``attention_block`` still returns ``(out, cache)`` with the same cache
+object.
 
 A decode step (S == 1, causal) over the paged pool always goes through
 :func:`repro_torch.kernels.paged_decode.paged_decode_attention`: the CUDA

@@ -1,15 +1,15 @@
 """Decoder-only LM assembly in PyTorch (port of ``repro/models/transformer.py``).
 
-This slice ports the dense self-attention stack that the serving path
-runs (qwen3-4b and the other ``family="dense"`` configs): ``layer_plan``,
-the parameter shapes, ``init_params``, ``_run_stack``, ``_prefill_like``,
-``prefill``, ``decode_step``, ``forward``, ``init_cache``,
-``paged_cache_shapes``, ``init_paged_cache``, the abstract specs
-(``param_specs``, ``cache_specs``, ``input_specs``: tensors on the meta
-device, the counterpart of JAX's ``ShapeDtypeStruct``) and
-``warm_autotune`` for the prefill and decode stages.  MoE, SSM, hybrid and
-encoder-decoder plans and ``loss_fn`` come with later slices;
-``layer_plan`` raises for them and ``warm_autotune`` refuses "train".
+This slice ports the dense self-attention stack (qwen3-4b, internlm2-1.8b
+and the other ``family="dense"`` configs) for serving and training:
+``layer_plan``, the parameter shapes, ``init_params``, ``_run_stack``
+(with remat), ``_prefill_like``, ``loss_fn``, ``forward``, ``prefill``,
+``decode_step``, ``init_cache``, ``paged_cache_shapes``,
+``init_paged_cache``, the abstract specs (``param_specs``,
+``cache_specs``, ``input_specs``: tensors on the meta device, the
+counterpart of JAX's ``ShapeDtypeStruct``) and ``warm_autotune`` for the
+train, prefill and decode stages.  MoE, SSM, hybrid and encoder-decoder
+plans come with a later slice; ``layer_plan`` raises for them.
 
 Parameters live in :class:`LM`: ``embed`` (V_padded, D), ``final_norm``,
 one :class:`Block` per layer in ``blocks`` (an ``nn.ModuleList``) and,
@@ -20,7 +20,16 @@ unstacks them.  Caches keep the stacked layout
 place; the functions still return them so call sites read like the
 reference.
 
+Parameters are built with ``requires_grad=False``, so serving builds no
+graph; a trainer turns them on for its own model
+(``model.requires_grad_(True)``).  ``loss_fn`` and ``forward`` then carry
+gradients, and with grad enabled each layer runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` per scanned
+layer): the backward keeps one (B, S, D) input per layer and recomputes
+the rest.  ``prefill`` and ``decode_step`` run under ``no_grad``.
+
 Entry points:
+    loss_fn(params, batch, cfg, seq_chunk=)  -- training loss, {"ce", "aux"}
     forward(params, batch, cfg)              -- logits over all positions
     prefill(params, batch, cfg, max_len=)    -- last-token logits + dense cache
     decode_step(params, cache, batch, cfg)   -- step over a dense or paged cache
@@ -35,7 +44,9 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -55,6 +66,7 @@ __all__ = [
     "param_leaves",
     "param_of",
     "init_params",
+    "loss_fn",
     "forward",
     "prefill",
     "decode_step",
@@ -212,24 +224,38 @@ def _layer_cache(cache, layer: int):
         name: leaf[layer] for name, leaf in cache["sub0"].items()}
 
 
+def _block(x, blk, cfg, positions, mask_kind, cache, cache_len, pos_offset,
+           block_table):
+    """One layer: attention and MLP sublayers, each with its residual."""
+    h = rms_norm(x, blk.ln1)
+    mo, _ = attention_block(
+        h, blk.attn, cfg, positions=positions, mask_kind=mask_kind,
+        cache=cache, cache_len=cache_len, pos_offset=pos_offset,
+        block_table=block_table)
+    x = x + mo
+    return x + mlp_block(rms_norm(x, blk.ln2), blk.mlp)
+
+
 def _run_stack(blocks, x, cfg, *, positions, mask_kind, cache=None,
                cache_len=None, pos_offset=None, block_table=None):
-    """Run the layers over x; cache leaves are written in place."""
+    """Run the layers over x; cache leaves are written in place.  With
+    grad enabled (training: no cache) each layer runs under a
+    non-reentrant checkpoint, the reference's remat (the blocks draw no
+    random numbers, so no RNG state is kept)."""
+    remat = cache is None and torch.is_grad_enabled()
     for layer, blk in enumerate(blocks):
-        h = rms_norm(x, blk.ln1)
-        mo, _ = attention_block(
-            h, blk.attn, cfg, positions=positions, mask_kind=mask_kind,
-            cache=_layer_cache(cache, layer), cache_len=cache_len,
-            pos_offset=pos_offset, block_table=block_table)
-        x = x + mo
-        x = x + mlp_block(rms_norm(x, blk.ln2), blk.mlp)
+        args = (x, blk, cfg, positions, mask_kind, _layer_cache(cache, layer),
+                cache_len, pos_offset, block_table)
+        x = (checkpoint(_block, *args, use_reentrant=False,
+                        preserve_rng_state=False) if remat else _block(*args))
     return x
 
 
 def _prefill_like(cfg, params, batch, *, max_len, want_cache):
     """Embeddings → stack → final norm.  batch: tokens (B, S) int
     [+ pos_offset (B,)], where ``pos_offset`` marks per-row left-padding:
-    positions become per-row and pad slots carry negatives."""
+    positions become per-row and pad slots carry negatives.  Used by
+    training (want_cache=False) and prefill (want_cache=True)."""
     layer_plan(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -250,11 +276,62 @@ def _logits(cfg, params, x):
     return x @ head
 
 
-@torch.no_grad()
 def forward(params, batch, cfg: ArchConfig):
     """Training-mode forward → (logits over all positions, aux loss 0)."""
     x, _ = _prefill_like(cfg, params, batch, max_len=0, want_cache=False)
     return _logits(cfg, params, x), torch.zeros((), device=x.device)
+
+
+def _ce_sums(logits, targets):
+    """(lse, lse - gold) of f32 ``logits`` (…, V) at int ``targets`` (…)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return lse, lse - gold
+
+
+def _chunk_ce(xc, head, tc, vc):
+    """Summed CE and z-loss of one sequence chunk; ``vc`` masks padding."""
+    lse, ce = _ce_sums((xc @ head).float(), tc)
+    return torch.sum(ce * vc), torch.sum(lse ** 2 * vc)
+
+
+def loss_fn(params, batch, cfg: ArchConfig, *, z_loss: float = 1e-4,
+            moe_aux: float = 1e-2, seq_chunk: int | None = None):
+    """Next-token CE (f32 logsumexp over the padded vocab, pad columns
+    included, as the reference) + z-loss + MoE load-balance aux (0 for
+    the dense stack) → (loss, {"ce", "aux"}).
+
+    ``seq_chunk``: logits and CE over sequence chunks of that many tokens
+    (S − 1 padded up to whole chunks, the padding masked, sums divided by
+    B·(S − 1)).  With grad enabled each chunk runs under a checkpoint, so
+    neither pass holds more than one chunk's (B, seq_chunk, V) logits."""
+    tokens = batch["tokens"]
+    x, _ = _prefill_like(cfg, params, batch, max_len=0, want_cache=False)
+    aux = torch.zeros((), device=x.device)
+    if seq_chunk is None:
+        lse, ce = _ce_sums(_logits(cfg, params, x)[:, :-1].float(), tokens[:, 1:])
+        ce, zl = torch.mean(ce), torch.mean(lse ** 2)
+        return ce + z_loss * zl + moe_aux * aux, {"ce": ce, "aux": aux}
+
+    head = params.embed.t() if cfg.tie_embeddings else params.lm_head
+    B, S, _ = x.shape
+    n_tok = B * (S - 1)
+    nc = -(-(S - 1) // seq_chunk)
+    pad = nc * seq_chunk - (S - 1)
+    # drop the final position (no next-token target), pad S-1 up to chunks
+    xs = F.pad(x[:, :-1], (0, 0, 0, pad))
+    tg = F.pad(tokens[:, 1:], (0, pad))
+    valid = (torch.arange(nc * seq_chunk, device=x.device) < S - 1).float()
+    ce_sum = zl_sum = 0.0
+    for c in range(nc):
+        part = slice(c * seq_chunk, (c + 1) * seq_chunk)
+        args = (xs[:, part], head, tg[:, part], valid[part])
+        ce_c, zl_c = (checkpoint(_chunk_ce, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if torch.is_grad_enabled() else _chunk_ce(*args))
+        ce_sum, zl_sum = ce_sum + ce_c, zl_sum + zl_c
+    ce, zl = ce_sum / n_tok, zl_sum / n_tok
+    return ce + z_loss * zl + moe_aux * aux, {"ce": ce, "aux": aux}
 
 
 @torch.no_grad()
@@ -359,12 +436,13 @@ def input_specs(cfg: ArchConfig, kind: str, *, batch_size: int,
                 seq_len: int) -> dict:
     """Meta stand-ins for the step inputs of one workload cell.
 
-    prefill → {batch={tokens (B, S)}};
-    decode  → {cache (dense, S long), batch={tokens (B, 1), cache_len}}.
+    train, prefill → {batch={tokens (B, S)}} (training reads its targets
+    from the tokens);
+    decode → {cache (dense, S long), batch={tokens (B, 1), cache_len}}.
     ``cache_len`` is the int 0: a meta tensor has no value to read, and
     no shape downstream depends on it."""
     B, S = batch_size, seq_len
-    if kind == "prefill":
+    if kind in ("train", "prefill"):
         return {"batch": {"tokens": torch.empty((B, S), dtype=torch.int32,
                                                 device=_META)}}
     if kind == "decode":
@@ -376,32 +454,33 @@ def input_specs(cfg: ArchConfig, kind: str, *, batch_size: int,
 
 
 def warm_autotune(cfg: ArchConfig, *, batch_size: int, seq_len: int,
-                  stages: tuple = ("prefill", "decode")) -> dict:
+                  stages: tuple = ("train", "prefill", "decode")) -> dict:
     """Pre-populate the kernel tuning cache for one workload cell.
 
     Traces the requested entry points on the meta device (the reference
     uses ``jax.eval_shape``): no parameter is allocated or drawn, and
     every autotune lookup in ``models/layers.py`` fires with exactly the
     shapes a real run sees, so the process-default tuner searches (and, on
-    a card, times) each missing config and persists the winner.  Returns
-    the tuner's {hits, misses} delta.  ``"train"`` raises until the
-    port's ``loss_fn`` lands (ROADMAP queue 1, item 2)."""
+    a card, times) each missing config and persists the winner.  "train"
+    (and, as in the reference, any stage but "prefill" and "decode")
+    traces ``loss_fn``'s forward under ``no_grad``: the backward and the
+    remat recompute look up the same shapes.  Returns the tuner's
+    {hits, misses} delta."""
     from repro_torch.kernels.autotune import autotune_enabled, get_tuner
 
-    for stage in stages:
-        if stage not in ("prefill", "decode"):
-            raise NotImplementedError(
-                f"warm_autotune stage {stage!r}: the port traces prefill and "
-                f"decode; the training step (loss_fn) is not ported yet")
     if not autotune_enabled():
         return {"hits": 0, "misses": 0}
     tuner = get_tuner()
     h0, m0 = tuner.hits, tuner.misses
     params = param_specs(cfg)
     for stage in stages:
-        spec = input_specs(cfg, stage, batch_size=batch_size, seq_len=seq_len)
-        if stage == "decode":
+        kind = stage if stage in ("prefill", "decode") else "train"
+        spec = input_specs(cfg, kind, batch_size=batch_size, seq_len=seq_len)
+        if kind == "decode":
             decode_step(params, spec["cache"], spec["batch"], cfg)
-        else:
+        elif kind == "prefill":
             prefill(params, spec["batch"], cfg, max_len=seq_len)
+        else:
+            with torch.no_grad():
+                loss_fn(params, spec["batch"], cfg)
     return {"hits": tuner.hits - h0, "misses": tuner.misses - m0}

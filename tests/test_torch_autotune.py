@@ -318,14 +318,38 @@ def test_warm_autotune_tunes_the_reference_set(tmp_path, monkeypatch):
     assert again["misses"] == 0 and again["hits"] == got["hits"] + got["misses"]
 
 
-def test_warm_autotune_traces_on_meta_and_refuses_train():
+def test_warm_autotune_train_tunes_the_reference_set(tmp_path, monkeypatch):
+    """The train stage traces ``loss_fn`` (the reference: ``jax.eval_shape``
+    of it) and tunes the same (kernel, shape, config) set as the
+    reference's, on fresh ``tpu_v5e`` tuners; reduced internlm2-1.8b
+    (untied head, GQA) and reduced qwen3-4b."""
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
+    for arch in ("internlm2-1.8b", "qwen3-4b"):
+        cfg, jcfg = get_config(arch, reduced=True), jax_get_config(arch, reduced=True)
+        ours = at.KernelTuner(device="tpu_v5e", cache=None, measure=False)
+        ref = jax_at.KernelTuner(device="tpu_v5e", cache=None, measure=False)
+        at.set_tuner(ours)
+        jax_at.set_tuner(ref)
+        got = T.warm_autotune(cfg, batch_size=4, seq_len=64, stages=("train",))
+        want = jax_T.warm_autotune(jcfg, batch_size=4, seq_len=64, stages=("train",))
+        assert got["misses"] == want["misses"] == 1
+        assert _tuned_set(ours) == _tuned_set(ref)
+        assert got["hits"] == cfg.n_layers - 1 and want["hits"] == 0
+
+
+def test_warm_autotune_traces_on_meta_including_train(monkeypatch):
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
     cfg = get_config("qwen3-4b")                 # full width: meta only
     params = T.param_specs(cfg)
     assert all(p.device.type == "meta" for p in params.parameters())
     spec = T.input_specs(cfg, "decode", batch_size=8, seq_len=2048)
     assert spec["cache"]["sub0"]["k"].device.type == "meta"
-    with pytest.raises(NotImplementedError, match="train"):
-        T.warm_autotune(cfg, batch_size=8, seq_len=2048, stages=("train",))
+    spec = T.input_specs(cfg, "train", batch_size=8, seq_len=2048)
+    assert spec["batch"]["tokens"].device.type == "meta"
+    # the training stage traces loss_fn on meta tensors: no allocation, no
+    # backward, one lookup per layer (the first a miss)
+    out = T.warm_autotune(cfg, batch_size=8, seq_len=2048, stages=("train",))
+    assert out == {"hits": cfg.n_layers - 1, "misses": 1}
 
 
 def test_default_cache_is_the_ports_own(monkeypatch):
