@@ -42,7 +42,23 @@ Phases (any failure raises and the script exits non-zero):
    model on the CPU (the port's plain path); launches the tuner makes
    inside this window (a prefill shape it has not seen) are counted
    apart and printed;
-6. train — the LM training path: one ``loss_fn`` + backward of a reduced
+6. layers — the non-dense layer plans (MoE, SSD, cross-attention): every
+   registry architecture at ``reduced()`` in f32 (TF32 off, tuning pinned)
+   on the card against the CPU, ``forward`` logits and ``prefill`` + one
+   ``decode_step``; full-width mamba2-780m (48 layers, bf16, seed 0)
+   served by the lockstep ``ServeEngine`` over 8 ragged prompts of
+   256-1024 tokens, 64 greedy tokens each, with the SSD chunk tuned at the
+   prefill's shape (the SSD kernel timed by the tuner: four launches per
+   timed config, none on the main path), prefill ms, TPOT and tokens/s,
+   and decode against forward within the reference's rel 0.05;
+   full-width qwen3-moe-30b-a3b with its depth cut to 4 of 48 layers
+   served by ``ContinuousEngine`` over the paged pool (16 greedy requests,
+   paged-decode launches == decode steps x 4, the kernel held against its
+   plain version on the served inputs), the tuner's (groups,
+   capacity_factor) and the share of (token, expert) pairs one prefill
+   drops; full-width whisper-tiny, a prefill over its 1500 frames and
+   decode steps with the encoder's memory, decode against forward;
+7. train — the LM training path: one ``loss_fn`` + backward of a reduced
    internlm2-1.8b in f32 on the card against the CPU (TF32 off), every
    gradient leaf; ``warm_autotune(stages=("train",))`` for full-width
    internlm2-1.8b at batch 4 over 2048 tokens on the tune phase's tuner,
@@ -57,7 +73,7 @@ Phases (any failure raises and the script exits non-zero):
    trained state at the reference's training sequence length, batch 2
    over 4096 tokens (timed steps, the peak and a traced step); a reduced
    checkpoint saved on the card and restored bit for bit;
-7. cnn — the paper's toolflow: one training step of a reduced ResNet-50
+8. cnn — the paper's toolflow: one training step of a reduced ResNet-50
    on the card against the CPU; then full-width ResNet-50 (32x32,
    CIFAR-100) pruned, profiled for Γ and Φ over the paper's train levels
    and the default test levels at five batch sizes (``collect_grid``),
@@ -66,7 +82,7 @@ Phases (any failure raises and the script exits non-zero):
    convolution shape) the grid gave it; the predictor fitted on the
    train points and its Γ/Φ error printed for each test grid; and a
    traced step at batch 128 (where the time goes);
-8. engine — paper §6.4 through the cost engine: an analytical spec of
+9. engine — paper §6.4 through the cost engine: an analytical spec of
    this card calibrated on the cnn phase's train grid (every workload
    from the cnn phase's cache, none profiled) and the tuner's timed
    winners; 16 full-width ResNet-50 sub-networks (seeds 2000 + i)
@@ -79,7 +95,7 @@ Phases (any failure raises and the script exits non-zero):
    measured through the engine (model-only queries, answered by the
    profiler); tier A repeated (same result, no new miss); the convolution
    kernel's launch count read around the phase;
-9. bench — two paper runners of ``repro_torch.bench`` at full width: the
+10. bench — two paper runners of ``repro_torch.bench`` at full width: the
    §6.2.1 DNNMem comparison over the cnn phase's cache (0 profiled, 0
    convolution kernel launches) and the §6.2 strategy variation on a fresh
    cache (the MobileNetV2 train grid and 8 strategies profiled, the kernel's
@@ -88,8 +104,9 @@ Phases (any failure raises and the script exits non-zero):
    against its plain version at every (batch size, convolution shape) the
    strategies run gave it and at every one the full paper set
    (``python -m repro_torch.bench.run``) gives it, seven families;
-10. a ``{"kernels": [...]}`` JSON line (the flash entry with the train
-   phase's ``train_*`` numbers), the card line again, and last
+11. a ``{"kernels": [...]}`` JSON line (the flash entry with the train
+   phase's ``train_*`` numbers, paged decode with the layers phase's
+   ``moe_*`` numbers, SSD with its ``serve_launches``), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it fails
@@ -98,7 +115,9 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -539,14 +558,14 @@ def decode_breakdown(cfg, params, scfg, prompts, n_steps: int = 8) -> None:
     paged = sum(t for k, t in by_kernel.items() if re.search(r"paged_decode_\w*kernel", k))
     merge = sum(t for k, t in by_kernel.items() if "combine_splits_kernel" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    print(f"decode step, 8 slots at ~256-280 tokens of context: host wall "
+    print(f"decode step ({cfg.name}), 8 slots at ~256-280 tokens of context: host wall "
           f"{wall_ms:.2f} ms/step, device kernel time {dev_ms:.2f} ms/step "
           f"(device idle {1 - dev_ms / wall_ms:.1%}), paged_decode "
           f"{paged:.3f} ms/step ({paged / dev_ms:.1%} of kernel time) + its split "
           f"merge {merge:.3f} ms/step; the "
           f"n_splits lookup (a tuner memo hit) {lookup_us:.1f} us on the host, "
           f"{lookup_us * cfg.n_layers / 1e3:.3f} ms/step over {cfg.n_layers} layers")
-    print("decode step top kernels (ms/step): " + "; ".join(
+    print(f"decode step ({cfg.name}) top kernels (ms/step): " + "; ".join(
         f"{k[:60]} {t:.3f}" for k, t in top))
 
 
@@ -591,6 +610,464 @@ def reference_phase() -> None:
           f"max_abs_err={err:.3e} (tol 2e-3)")
     if not err <= 2e-3:
         raise AssertionError(f"card disagrees with the CPU path: {err}")
+
+
+# ---------------------------------------------------------------------------
+# The non-dense layer plans: MoE, SSD and cross-attention
+# ---------------------------------------------------------------------------
+
+# card against CPU, every registry architecture at smoke size in f32 (TF32
+# off, tuning pinned to the configs' constants on both devices): f32 sums
+# in other orders (~1e-6), and K/V read back from a bf16 cache where f32
+# noise may round an entry to the other bf16 neighbour, which moves a
+# logit by up to one bf16 ulp (2^-8) of the largest (1.9e-3 seen, whisper's
+# prefill); relative to the largest logit
+LAYERS_CPU_TOL = 2.0 ** -8
+# decode against forward, the reference's own check
+# (tests/test_lm_models.py:64): the last token's logits, relative to the
+# largest.  It holds in bf16 at the reference's 2 layers; over mamba2's 48
+# the bf16 rounding of the chunked scan's output (the recurrence keeps f32)
+# compounds, in the reference as in the port
+# (tests/test_torch_ssd_block.py), so full-depth mamba2 is gated in f32
+# on its bf16 weights and its bf16 error is printed
+DECODE_REL_TOL = 0.05
+# mamba2-780m served by the lockstep engine: 8 ragged prompts of 256-1024
+# tokens (the longest 1024, so the SSD scan's prefill width is 1024), 64
+# greedy new tokens each
+MAMBA_SLOTS, MAMBA_NEW = 8, 64
+# qwen3-moe-30b-a3b at full width with its depth cut to 4 of 48 layers
+MOE_LAYERS = 4
+# whisper-tiny at full width: 2 requests of 32 tokens over its 1500 frames
+WHISPER_B, WHISPER_S, WHISPER_STEPS = 2, 32, 8
+
+
+def decode_rel_err(params, cfg, batch, pos_offset=None) -> float:
+    """prefill(prompt) → greedy token → one decode_step, against forward
+    over prompt + token: max |Δ logits| / max |logits| of the last
+    position."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    tokens = batch["tokens"]
+    S = tokens.shape[1] + cfg.n_prefix
+    pb = dict(batch)
+    if pos_offset is not None:
+        pb["pos_offset"] = pos_offset
+    pf = T.prefill(params, pb, cfg, max_len=S + 1)
+    tok = pf["logits"][:, -1].float().argmax(-1).to(torch.int32)[:, None]
+    db = {"tokens": tok, "cache_len": pf["cache_len"]}
+    if "memory" in pf:
+        db["memory"] = pf["memory"]
+    if pos_offset is not None:
+        db["pos_offset"] = pos_offset
+    dec, _ = T.decode_step(params, pf["cache"], db, cfg)
+    fb = dict(pb, tokens=torch.cat([tokens, tok], dim=1))
+    with torch.no_grad():
+        full, _ = T.forward(params, fb, cfg)
+    ref, got = full[:, -1].float(), dec[:, 0].float()
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError(f"{cfg.name}: decode or forward logits not finite")
+    return float((ref - got).abs().max() / ref.abs().max())
+
+
+@contextlib.contextmanager
+def pinned_tuning():
+    """Tuning off (the configs' constants) for the block inside."""
+    old = os.environ.get("REPRO_AUTOTUNE")
+    os.environ["REPRO_AUTOTUNE"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_AUTOTUNE"]
+        else:
+            os.environ["REPRO_AUTOTUNE"] = old
+
+
+def traced_breakdown(label: str, step, n_steps: int = 8) -> None:
+    """Where ``step``'s time goes: ``n_steps`` calls timed on the host
+    clock, then ``n_steps`` more traced with ``torch.profiler`` (CUDA
+    activity only); device time, idle share and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t / 1e3 / n_steps
+    dev_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{label}: host wall {wall_ms:.2f} ms, device kernel time {dev_ms:.2f} ms "
+          f"(device idle {1 - dev_ms / wall_ms:.1%}); top kernels (ms): " + "; ".join(
+              f"{k[:60]} {t:.3f}" for k, t in top))
+
+
+def layers_card_vs_cpu() -> None:
+    """(1) Every registry architecture at ``reduced()`` in f32: ``forward``
+    logits and ``prefill`` + one ``decode_step`` (with the encoder's memory
+    for whisper) on the card against the same model on the CPU."""
+    import torch
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.models import transformer as T
+
+    worst = {}
+    with pinned_tuning():
+        for arch in ARCH_IDS:
+            cfg = get_config(arch, reduced=True)
+            rng = np.random.default_rng(6)
+            batch = {"tokens": rng.integers(0, cfg.vocab, (2, 17)).astype(np.int32)}
+            if cfg.n_prefix:
+                batch["patches"] = rng.standard_normal(
+                    (2, cfg.n_prefix, cfg.d_model)).astype(np.float32)
+            if cfg.n_encoder_layers:
+                batch["frames"] = rng.standard_normal(
+                    (2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+            out = {}
+            for dev in ("cpu", "cuda"):
+                params = T.init_params(cfg, 0, device=dev, dtype=torch.float32)
+                b = {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+                with torch.no_grad():
+                    fwd, aux = T.forward(params, b, cfg)
+                pf = T.prefill(params, dict(b, tokens=b["tokens"][:, :-1]), cfg,
+                               max_len=17 + cfg.n_prefix)
+                db = {"tokens": b["tokens"][:, -1:], "cache_len": pf["cache_len"]}
+                if "memory" in pf:
+                    db["memory"] = pf["memory"]
+                dec, _ = T.decode_step(params, pf["cache"], db, cfg)
+                out[dev] = [t.float().cpu() for t in (fwd, pf["logits"], dec)] + [float(aux)]
+            errs = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                    for a, b in zip(out["cuda"][:3], out["cpu"][:3])]
+            worst[arch] = max(errs)
+            print(f"layers {arch} reduced f32, card vs CPU: forward {errs[0]:.3e}, "
+                  f"prefill {errs[1]:.3e}, decode {errs[2]:.3e} (relative to the "
+                  f"largest logit, tol {LAYERS_CPU_TOL}); aux {out['cuda'][3]:.6f} / "
+                  f"{out['cpu'][3]:.6f}")
+            if not all(torch.isfinite(t).all() for t in out["cuda"][:3]):
+                raise AssertionError(f"{arch}: card logits not finite")
+    bad = {a: e for a, e in worst.items() if not e <= LAYERS_CPU_TOL}
+    print(f"layers card vs CPU, {len(worst)} architectures: worst "
+          f"{max(worst, key=worst.get)} at {max(worst.values()):.3e}")
+    if bad:
+        raise AssertionError(f"card disagrees with the CPU: {bad}")
+
+
+def layers_mamba() -> dict:
+    """(2) Full-width mamba2-780m (48 layers, bf16, seed 0) served by the
+    lockstep ``ServeEngine``: the SSD chunk of the prefill comes from the
+    tuner, which times the SSD kernel at the prefill's shape (four
+    launches per timed config, none on the main path); then prefill ms,
+    TPOT and tokens/s of a second run; and the decode-against-forward
+    gate."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ssm_scan import tiling as ssm_tiling
+    from repro_torch.kernels.ssm_scan.kernel import ssd_chunk_cuda
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import pad_ragged
+
+    cfg = get_config("mamba2-780m")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    lens = rng.integers(256, 1025, MAMBA_SLOTS)
+    lens[0] = 1024
+    prompts = [rng.integers(2, cfg.vocab, (int(n),)).astype(np.int32) for n in lens]
+    S0 = int(lens.max())
+    scfg = ServeConfig(max_len=S0 + MAMBA_NEW + 2, n_slots=MAMBA_SLOTS, eos_id=-1)
+    engine = ServeEngine(cfg, params, scfg, device="cuda")
+
+    tuner = autotune.get_tuner()
+    timed, t_launches = tuner.timed, ssd_chunk_cuda.tuner_launches
+    ssd_chunk_cuda.launches = 0
+    window = TunerWindow()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = engine.generate(prompts, max_new_tokens=MAMBA_NEW)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    window.report("layers mamba2")
+    timed = tuner.timed - timed
+    tuner_launches = ssd_chunk_cuda.tuner_launches - t_launches
+    main_launches = ssd_chunk_cuda.launches
+    d_inner = cfg.ssm_expand * cfg.d_model
+    key = ssm_tiling.shape_key((MAMBA_SLOTS, S0, d_inner // cfg.ssm_head_dim,
+                                cfg.ssm_head_dim), cfg.ssm_state, dtype=T.DTYPE)
+    entry = [e for e in tuner.cache.entries()
+             if e["kernel"] == "ssm_scan" and e["shape"] == key]
+    chunk = entry[0]["config"]["chunk"] if entry else None
+    print(f"layers mamba2 ssm_scan tuning at the prefill shape "
+          f"{json.dumps(key, sort_keys=True)}: {entry}")
+    print(f"layers mamba2 ssd_chunk: {timed} configs timed -> tuner_launches="
+          f"{tuner_launches} (expected {4 * timed}), main-path launches {main_launches}")
+    if not (len(entry) == 1 and entry[0]["source"] == "timed"
+            and tuner_launches == 4 * timed > 0 and main_launches == 0):
+        raise AssertionError("the SSD chunk was not tuned on the card as counted")
+
+    tokens, plens = pad_ragged(prompts)
+    batch = {"tokens": torch.tensor(tokens, device="cuda")}
+    pos_offset = torch.tensor(S0 - plens, dtype=torch.int32, device="cuda")
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.prefill(params, dict(batch, pos_offset=pos_offset), cfg, max_len=scfg.max_len)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(prefill_ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=MAMBA_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_out = int(out["token_counts"].sum())
+    tpot_ms = (wall * 1e3 - prefill_ms) / (out["tokens"].shape[1] - 1)
+    if not (np.array_equal(out["tokens"], first["tokens"])
+            and out["tokens"].shape == (MAMBA_SLOTS, MAMBA_NEW)
+            and ((0 <= out["tokens"]) & (out["tokens"] < cfg.padded_vocab())).all()):
+        raise AssertionError("mamba2 greedy streams differ between two runs or are bad")
+    pf = T.prefill(params, dict(batch, pos_offset=pos_offset), cfg, max_len=scfg.max_len)
+    traced_breakdown("layers mamba2 prefill of 8 x 1024 tokens", lambda: T.prefill(
+        params, dict(batch, pos_offset=pos_offset), cfg, max_len=scfg.max_len), 2)
+    state = {"cache": pf["cache"], "len": pf["cache_len"],
+             "tok": pf["logits"][:, -1].argmax(-1).to(torch.int32)[:, None]}
+
+    def decode():
+        logits, _ = T.decode_step(params, state["cache"], {
+            "tokens": state["tok"], "cache_len": state["len"],
+            "pos_offset": pos_offset}, cfg)
+        state["tok"] = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        state["len"] += 1
+
+    traced_breakdown("layers mamba2 decode step, 8 slots", decode)
+    del pf, state
+    with pinned_tuning():
+        rel_bf16 = decode_rel_err(params, cfg, batch, pos_offset)
+        rel = decode_rel_err(params.float(), cfg, batch, pos_offset)
+    print(f"layers mamba2-780m full width ({cfg.param_count() / 1e9:.4f}e9 parameters, "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {d_inner // cfg.ssm_head_dim} SSD "
+          f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}) bf16 seed 0: init_params "
+          f"{init_s:.1f} s; ServeEngine(n_slots={MAMBA_SLOTS}) over prompts of "
+          f"{lens.tolist()} tokens, {MAMBA_NEW} greedy tokens each: first run (tuning "
+          f"included) {first_s:.3f} s; second run {wall:.3f} s = {n_out / wall:.1f} "
+          f"tokens/s, prefill {prefill_ms:.1f} ms (median of 3), TPOT {tpot_ms:.2f} ms; "
+          f"tuned SSD chunk {chunk}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"layers mamba2 decode vs forward (forward over prompt + token, tuning pinned "
+          f"to chunk {cfg.ssm_chunk}): max relative error in bf16 {rel_bf16:.4f} (not "
+          f"gated: bf16 rounding over 48 layers, see DECODE_REL_TOL), in f32 (the same "
+          f"weights) {rel:.3e} (tol {DECODE_REL_TOL})")
+    if not rel <= DECODE_REL_TOL:
+        raise AssertionError(f"mamba2 decode disagrees with forward: {rel}")
+    del params, engine
+    torch.cuda.empty_cache()
+    return {"serve_launches": tuner_launches, "main_launches": main_launches}
+
+
+def layers_moe() -> dict:
+    """(3) Full-width qwen3-moe-30b-a3b, depth cut to ``MOE_LAYERS``,
+    served by ``ContinuousEngine`` over the paged pool as the serve phase
+    serves qwen3-4b; the paged decode kernel's launches counted and the
+    kernel held against its plain version on the served inputs; the
+    tuner's (groups, capacity_factor) for each MoE shape, and the share of
+    (token, expert) pairs dropped in one prefill."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.paged_decode import ops
+    from repro_torch.kernels.paged_decode.kernel import paged_decode_cuda
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ContinuousConfig, ContinuousEngine, Request
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scfg = ContinuousConfig(n_slots=8, max_len=2048, prefill_chunk=512)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1537, 16)
+    prompts = [rng.integers(2, cfg.vocab, (int(n),)).astype(np.int32) for n in lens]
+
+    ContinuousEngine(cfg, params, scfg, device="cuda").run(   # warm-up: handles, pools
+        [Request(p[:100], max_new_tokens=4) for p in prompts[:2]])
+    engine = ContinuousEngine(cfg, params, scfg, device="cuda")
+    calls, launch = [], ops.paged_decode_cuda
+
+    def keep_last(*args, **kw):    # the served model's own kernel inputs
+        calls.append((args, kw))
+        return launch(*args, **kw)
+
+    requests = [Request(p, max_new_tokens=32) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.paged_decode_cuda = keep_last
+    paged_decode_cuda.launches = 0
+    window = TunerWindow()
+    t0 = time.perf_counter()
+    try:
+        engine.run(requests)
+        torch.cuda.synchronize()
+    finally:
+        ops.paged_decode_cuda = launch
+    wall = time.perf_counter() - t0
+    launches = paged_decode_cuda.launches
+    window.report("layers qwen3-moe")
+    m = engine.metrics()
+    print(f"layers qwen3-moe-30b-a3b full width, {MOE_LAYERS} of 48 layers "
+          f"({cfg.param_count() / 1e9:.4f}e9 parameters, {cfg.n_experts} experts top-"
+          f"{cfg.experts_per_token} of d_ff {cfg.moe_d_ff_}) bf16 seed 0: init_params "
+          f"{init_s:.1f} s; ContinuousEngine n_slots=8 max_len=2048 prefill_chunk=512: "
+          f"{m['finished']}/{len(requests)} finished, lost={m['lost']}, decode_steps="
+          f"{m['decode_steps']}, paged_decode launches={launches}, preemptions="
+          f"{m['preemptions']}, prefill_chunks={m['prefill_chunks']}")
+    if m["finished"] != len(requests) or m["lost"] != 0:
+        raise AssertionError(f"not every MoE request finished: {m}")
+    if not launches == m["decode_steps"] * MOE_LAYERS > 0:
+        raise AssertionError(f"paged_decode launches {launches} != decode_steps "
+                             f"{m['decode_steps']} x {MOE_LAYERS}")
+    vocab = cfg.padded_vocab()
+    for r in engine.finished:
+        if not (len(r.tokens) and all(0 <= t < vocab for t in r.tokens)):
+            raise AssertionError(f"request {r.rid}: bad tokens {r.tokens}")
+    print(f"layers qwen3-moe {m['tokens_out']} tokens in {wall:.3f} s = "
+          f"{m['tokens_out'] / wall:.1f} tokens/s; TTFT p50 {m['ttft_p50_ms']:.1f} ms "
+          f"p99 {m['ttft_p99_ms']:.1f} ms; TPOT p50 {m['tpot_p50_ms']:.2f} ms p99 "
+          f"{m['tpot_p99_ms']:.2f} ms; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for e in autotune.get_tuner().cache.entries():
+        if e["kernel"] == "moe_dispatch":
+            print(f"layers qwen3-moe moe_dispatch {json.dumps(e['shape'], sort_keys=True)}: "
+                  f"config {e['config']} source {e['source']} (default "
+                  f"{e['default_config']})")
+
+    # the last layer's call of the step with the most live slots (the last
+    # step may hold one): the pool as the run left it, the step's own
+    # queries, table and fills
+    busiest = max(range(MOE_LAYERS - 1, len(calls), MOE_LAYERS),
+                  key=lambda i: (int((calls[i][0][4] > 0).sum()), i))
+    (q, kp, vp, bt, cl), kw = calls[busiest]
+    got = paged_decode_cuda(q, kp, vp, bt, cl, **kw)
+    want = paged_decode_ref(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and got.shape == q.shape):
+        raise AssertionError("paged_decode output on the MoE model's inputs not finite")
+    err = float((got.float() - want.float()).abs().max())
+    print(f"layers qwen3-moe paged_decode on the served pool (last layer of decode "
+          f"step {busiest // MOE_LAYERS + 1}, the busiest, H {cfg.n_heads} Hkv "
+          f"{cfg.n_kv_heads} Dh {cfg.head_dim_}, cache_len={cl.tolist()}): "
+          f"max_abs_err={err:.3e} (tol {TOL['bfloat16']})")
+    if not err <= TOL["bfloat16"]:
+        raise AssertionError(f"paged_decode disagrees on the MoE model's inputs: {err}")
+    del engine, calls, q, kp, vp, got, want
+    decode_breakdown(cfg, params, scfg, prompts)
+
+    # the share of (token, expert) pairs dropped in one prefill (1024 tokens)
+    dispatch, drops = L._moe_dispatch_group, []
+
+    def counted(xt, ids, E, K, C):
+        buf, route = dispatch(xt, ids, E, K, C)
+        drops.append((int((route[1] == C).sum()), route[1].numel(), C, xt.shape[0]))
+        return buf, route
+
+    tokens = np.random.default_rng(9).integers(2, cfg.vocab, (1, 1024))
+    L._moe_dispatch_group = counted
+    try:
+        T.prefill(params, {"tokens": torch.tensor(tokens, dtype=torch.int32,
+                                                  device="cuda")}, cfg, max_len=1024)
+        torch.cuda.synchronize()
+    finally:
+        L._moe_dispatch_group = dispatch
+    dropped, pairs = sum(d[0] for d in drops), sum(d[1] for d in drops)
+    print(f"layers qwen3-moe one prefill of 1024 tokens: {dropped} of {pairs} (token, "
+          f"expert) pairs dropped = {dropped / pairs:.4%} (per layer "
+          f"{[d[0] for d in drops]}, capacity {drops[0][2]} slots per expert, "
+          f"{drops[0][3]} group(s))")
+    del params
+    torch.cuda.empty_cache()
+    return {"moe_launches": launches, "moe_max_abs_err": err}
+
+
+def layers_whisper() -> None:
+    """(4) Full-width whisper-tiny (4 + 4 layers, d 384, seed 0, bf16):
+    ``prefill`` over 1500 frames and ``WHISPER_STEPS`` greedy decode steps
+    with the encoder's memory; finite logits and the decode-against-forward
+    gate."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("whisper-tiny")
+    params = T.init_params(cfg, 0, device="cuda")
+    rng = np.random.default_rng(8)
+    tokens = torch.tensor(rng.integers(2, cfg.vocab, (WHISPER_B, WHISPER_S)),
+                          dtype=torch.int32, device="cuda")
+    frames = torch.tensor(rng.standard_normal((WHISPER_B, cfg.n_audio_frames, cfg.d_model)),
+                          dtype=T.DTYPE, device="cuda")
+    batch = {"tokens": tokens, "frames": frames}
+    rel = decode_rel_err(params, cfg, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pf = T.prefill(params, batch, cfg, max_len=WHISPER_S + WHISPER_STEPS)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cache, cl, tok = pf["cache"], pf["cache_len"], pf["logits"][:, -1].argmax(-1)
+    t0 = time.perf_counter()
+    for _ in range(WHISPER_STEPS):
+        logits, cache = T.decode_step(params, cache, {
+            "tokens": tok.to(torch.int32)[:, None], "cache_len": cl,
+            "memory": pf["memory"]}, cfg)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("whisper decode logits not finite")
+        tok, cl = logits[:, -1].argmax(-1), cl + 1
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / WHISPER_STEPS
+    print(f"layers whisper-tiny full width ({cfg.param_count() / 1e6:.2f}e6 parameters, "
+          f"{cfg.n_encoder_layers} + {cfg.n_layers} layers, d {cfg.d_model}) bf16 seed 0: "
+          f"prefill of B={WHISPER_B} x {WHISPER_S} tokens over "
+          f"{cfg.n_audio_frames} frames {prefill_ms:.1f} ms, memory "
+          f"{tuple(pf['memory'].shape)}; {WHISPER_STEPS} decode steps with the memory, "
+          f"{step_ms:.2f} ms/step; decode vs forward max relative error {rel:.4f} "
+          f"(tol {DECODE_REL_TOL})")
+    if not rel <= DECODE_REL_TOL:
+        raise AssertionError(f"whisper decode disagrees with forward: {rel}")
+
+
+def layers_phase() -> dict:
+    import torch
+
+    t0 = time.perf_counter()
+    layers_card_vs_cpu()
+    mamba = layers_mamba()
+    moe = layers_moe()
+    layers_whisper()
+    torch.cuda.empty_cache()
+    print(f"layers phase done in {time.perf_counter() - t0:.1f} s")
+    return {**mamba, **moe}
 
 
 # ---------------------------------------------------------------------------
@@ -2114,6 +2591,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     served = serve_phase()
     reference_phase()
+    layered = layers_phase()
     trained = train_phase()
     cnn = cnn_phase()
     engine = engine_phase(cnn)
@@ -2127,6 +2605,8 @@ def main() -> int:
         "launches": served["launches"],
         "max_abs_err": served["max_abs_err"],
         **timing,
+        "moe_launches": layered["moe_launches"],
+        "moe_max_abs_err": layered["moe_max_abs_err"],
     }, {
         "name": "conv_mm",
         "route": "cuda",
@@ -2157,6 +2637,7 @@ def main() -> int:
         "replaces": SSD_REPLACES,
         "launches": tuned["launches"]["ssm_scan"],
         **ssd_timing,
+        "serve_launches": layered["serve_launches"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"device {card_line()}")

@@ -8,10 +8,13 @@ tensor leaves, so :func:`cnn_params_from_numpy` and
 :func:`cnn_params_to_numpy` copy leaf by leaf and keep the layout.
 
 ``repro.models.transformer.init_params`` returns a nested dict of numpy
-arrays whose block leaves are stacked on a leading ``(n_layers, …)`` axis;
-the port keeps one :class:`~repro_torch.models.transformer.Block` per
-layer.  Both keep ``(in, out)`` weights used as ``x @ W``, so conversion
-is a copy that unstacks (or restacks) the layer axis.  Arrays are read
+arrays whose block (and encoder) leaves are stacked on a leading
+``(n_scan, …)`` axis; the port keeps one scan step per entry of
+``blocks`` (a :class:`~repro_torch.models.transformer.Block`, or a
+superblock of them) and one Block per encoder layer, named by
+:func:`~repro_torch.models.transformer.param_name`.  Both keep ``(in,
+out)`` weights used as ``x @ W``, so conversion is a copy that unstacks
+(or restacks) the scan axis.  Arrays are read
 through ``np.asarray(leaf, np.float32)``, which is exact for the
 reference's bf16 leaves; tensors are copied as they are.
 
@@ -32,7 +35,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import LM, param_leaves
+from repro_torch.models.transformer import LM, param_leaves, param_name
 
 __all__ = ["params_from_jax", "params_to_numpy", "grads_to_numpy",
            "train_state_from_jax", "train_state_to_tree", "train_state_to_numpy",
@@ -45,21 +48,21 @@ def _get(tree, path):
     return tree
 
 
-def _name(path: tuple[str, ...], layer: int | None) -> str:
-    """The port's parameter name of a reference path (and layer)."""
-    return ".".join(("blocks", str(layer), *path[2:])) if path[0] == "blocks" else path[0]
+def _stacked(path: tuple[str, ...]) -> bool:
+    return path[0] in ("blocks", "encoder")
 
 
 def _restack(named: dict, cfg: ArchConfig) -> dict:
-    """Tensors keyed by parameter name → the reference's tree, block
-    leaves stacked on the layer axis; CPU tensors in their own dtypes."""
+    """Tensors keyed by parameter name → the reference's tree, block and
+    encoder leaves stacked on the scan axis; CPU tensors in their own
+    dtypes."""
     tree: dict = {}
     for path, shape in param_leaves(cfg):
-        if path[0] == "blocks":
-            leaf = torch.stack([named[_name(path, layer)].detach().cpu()
+        if _stacked(path):
+            leaf = torch.stack([named[param_name(cfg, path, layer)].detach().cpu()
                                 for layer in range(shape[0])])
         else:
-            leaf = named[_name(path, None)].detach().cpu()
+            leaf = named[param_name(cfg, path)].detach().cpu()
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -70,7 +73,7 @@ def _restack(named: dict, cfg: ArchConfig) -> dict:
 @torch.no_grad()
 def _unstack(tree, cfg: ArchConfig, named: dict) -> None:
     """Copy the reference's tree (numpy, JAX or tensor leaves) into the
-    tensors keyed by parameter name, one layer slice at a time."""
+    tensors keyed by parameter name, one scan-step slice at a time."""
     for path, shape in param_leaves(cfg):
         leaf = _get(tree, path)
         if not torch.is_tensor(leaf):
@@ -78,8 +81,9 @@ def _unstack(tree, cfg: ArchConfig, named: dict) -> None:
         if tuple(leaf.shape) != tuple(shape):
             raise ValueError(f"{'/'.join(path)}: shape {tuple(leaf.shape)} != "
                              f"{tuple(shape)}")
-        for layer in range(shape[0]) if path[0] == "blocks" else [None]:
-            named[_name(path, layer)].copy_(leaf if layer is None else leaf[layer])
+        for layer in range(shape[0]) if _stacked(path) else [None]:
+            named[param_name(cfg, path, layer)].copy_(
+                leaf if layer is None else leaf[layer])
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -96,7 +100,7 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda",
 
 def params_to_numpy(model: LM, cfg: ArchConfig) -> dict:
     """An :class:`LM` → the reference's tree layout, float32 numpy leaves
-    (block leaves restacked on the layer axis)."""
+    (block and encoder leaves restacked on the scan axis)."""
     return tree_map(_numpy, _restack(dict(model.named_parameters()), cfg))
 
 

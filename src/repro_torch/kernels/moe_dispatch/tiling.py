@@ -3,8 +3,8 @@ of ``repro/kernels/moe_dispatch/tiling.py``; a cost model only, with no
 runner and no kernel).
 
 Not a kernel — the GShard-style dispatch in ``models/layers.py``
-(``moe_block``, which the port reaches with ROADMAP queue 1, item 3) is
-plain tensor code — but its two free knobs are exactly a
+(``moe_block``, which reads its knobs through ``_tuned_moe_dispatch``)
+is plain tensor code — but its two free knobs are exactly a
 tiling problem, so it goes through the same
 :class:`~repro_torch.kernels.autotune.KernelTuner` candidate/cost-model
 interface as the kernels:

@@ -1,15 +1,28 @@
 """Transformer building blocks in PyTorch (port of ``repro/models/layers.py``).
 
-This slice ports what a dense self-attention stack needs: ``rms_norm``,
-``rope``, ``_mask_bias``, ``blocked_attention``, ``attention_block`` (no
-cache, dense cache and paged pool) and ``mlp_block``, plus the parameter
-modules ``Attention`` and ``MLP``; and the chunked SSD scan ``ssd_scan``
-(with ``_segsum``), the oracle of the SSD kernel.  Cross-attention,
-``moe_block`` and ``ssd_block`` come with later slices.
+Everything the reference's layer plans use: ``rms_norm``, ``rope``,
+``_mask_bias``, ``blocked_attention``, ``attention_block`` (self-attention
+with no cache, a dense cache or a paged pool, and cross-attention over a
+memory), ``mlp_block``, the capacity-dispatch ``moe_block`` (with
+``moe_capacity``, the dispatch and combine of its token groups and
+``_load_balance_loss``) and the Mamba-2 mixer ``ssd_block`` over the
+chunked scan ``ssd_scan`` (with ``_segsum``, also the oracle of the SSD
+kernel); plus the parameter modules ``Attention``, ``MLP``, ``MoE`` and
+``SSM``.
 
 ``blocked_attention``'s query block comes from the kernel autotuner when
 the caller passes none (``_tuned_attention_block_q``): it shares the
-flash-attention tiling model and cache, as in the reference.
+flash-attention tiling model and cache, as in the reference.  So do the
+MoE dispatch's (groups, capacity factor) (``_tuned_moe_dispatch``, the
+``moe_dispatch`` tiling model) and the SSD chunk (``_tuned_ssm_chunk``,
+the ``ssm_scan`` tiling model, whose runner times the SSD kernel on the
+card).  ``ssd_block`` itself runs the plain ``ssd_scan``, as the
+reference's runs its own (``layers.py:662``), so the SSD kernel is
+reached only through the tuner.
+
+The reference's ``_maybe_constrain`` (sharding hints against a
+launcher-installed mesh) has no counterpart: on one device it is the
+identity, and the port has no mesh yet (ROADMAP queue 1 item 7).
 
 Parameters keep the JAX layout: ``(in, out)`` weights used as ``x @ W``.
 They are built with ``requires_grad=False`` (serving builds no graph); a
@@ -39,12 +52,18 @@ from repro_torch.kernels.paged_decode import paged_decode_attention
 __all__ = [
     "Attention",
     "MLP",
+    "MoE",
+    "SSM",
     "rms_norm",
     "rope",
     "blocked_attention",
     "attention_block",
     "mlp_block",
+    "moe_block",
+    "moe_capacity",
+    "ssd_block",
     "ssd_scan",
+    "ssm_dims",
 ]
 
 _NEG_INF = -1e30
@@ -86,6 +105,49 @@ class MLP(nn.Module):
         self.down = _param((Ff, D), dtype, device)
 
 
+class MoE(nn.Module):
+    """router (D, E), gate/up (E, D, F), down (E, F, D)."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        D, E, Ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff_
+        self.router = _param((D, E), dtype, device)
+        self.gate = _param((E, D, Ff), dtype, device)
+        self.up = _param((E, D, Ff), dtype, device)
+        self.down = _param((E, Ff, D), dtype, device)
+
+
+def ssm_dims(cfg) -> tuple[int, int, int, int, int]:
+    """(d_inner, H, P, N, d_conv_ch) of the SSD mixer (one B/C group)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    return d_inner, d_inner // P, P, N, d_inner + 2 * N
+
+
+class SSM(nn.Module):
+    """The Mamba-2 mixer, one projection per segment (ref
+    ``transformer.py:115-136``): w_z, w_x (D, d_inner), w_B, w_C (D, N),
+    w_dt (D, H), conv_w (W, d_conv_ch), conv_b (d_conv_ch,), dt_bias,
+    A_log, D (H,), norm (d_inner,), out_proj (d_inner, D)."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        Dm = cfg.d_model
+        d_inner, H, _, N, d_conv_ch = ssm_dims(cfg)
+        self.w_z = _param((Dm, d_inner), dtype, device)
+        self.w_x = _param((Dm, d_inner), dtype, device)
+        self.w_B = _param((Dm, N), dtype, device)
+        self.w_C = _param((Dm, N), dtype, device)
+        self.w_dt = _param((Dm, H), dtype, device)
+        self.conv_w = _param((cfg.ssm_conv_width, d_conv_ch), dtype, device)
+        self.conv_b = _param((d_conv_ch,), dtype, device)
+        self.dt_bias = _param((H,), dtype, device)
+        self.A_log = _param((H,), dtype, device)
+        self.D = _param((H,), dtype, device)
+        self.norm = _param((d_inner,), dtype, device)
+        self.out_proj = _param((d_inner, Dm), dtype, device)
+
+
 def _tuned_attention_block_q(q, k, causal: bool) -> int:
     """Query-block size for :func:`blocked_attention`, from the autotuner.
 
@@ -101,6 +163,45 @@ def _tuned_attention_block_q(q, k, causal: bool) -> int:
                              causal=causal, dtype=q.dtype)
     return int(tuned_config("flash_attention", shape,
                             tiling.default(shape)).get("block_q", 512))
+
+
+def _tuned_moe_dispatch(B: int, S: int, cfg, dtype) -> tuple[int, float]:
+    """(groups, capacity_factor) for :func:`moe_block`, from the autotuner
+    (the ``moe_dispatch`` tiling model, which has no runner: every spec
+    ranks it by its cost model), as the reference's (``layers.py:106-137``).
+
+    Falls back to ``gcd(B, moe_groups or 32)`` groups at the configured
+    factor; the tuned factor never falls below the configured one (the
+    tuner may add slack, never drop more tokens).  Both knobs change the
+    routing, so logits depend on the tuning cache unless
+    ``REPRO_AUTOTUNE=0``."""
+    from repro_torch.kernels.autotune import tuned_config
+    from repro_torch.kernels.moe_dispatch import tiling
+
+    g_default = math.gcd(B, getattr(cfg, "moe_groups", 32) or 32)
+    shape = tiling.shape_key(B, S, cfg.d_model, cfg.n_experts,
+                             cfg.experts_per_token, cfg.moe_d_ff_,
+                             cfg.capacity_factor, dtype)
+    tuned = tuned_config("moe_dispatch", shape,
+                         {"groups": g_default,
+                          "capacity_factor": cfg.capacity_factor})
+    groups = math.gcd(B, int(tuned.get("groups", g_default)) or g_default)
+    factor = max(float(tuned.get("capacity_factor", cfg.capacity_factor)),
+                 cfg.capacity_factor)
+    return groups, factor
+
+
+def _tuned_ssm_chunk(xh, n_state: int, default_chunk: int) -> int:
+    """Chunk length for :func:`ssd_scan`, from the autotuner (the
+    ``ssm_scan`` tiling model; on the card its runner times the SSD
+    kernel), falling back to the config constant (ref ``layers.py:140``)."""
+    from repro_torch.kernels.autotune import tuned_config
+    from repro_torch.kernels.ssm_scan import tiling
+
+    shape = tiling.shape_key(xh.shape, n_state, dtype=xh.dtype)
+    return int(tuned_config("ssm_scan", shape,
+                            {"chunk": default_chunk}).get("chunk",
+                                                          default_chunk))
 
 
 def rms_norm(x, w, eps: float = 1e-6):
@@ -203,12 +304,16 @@ def attention_block(
     cache=None,          # {"k","v"}: (B, Smax, Hkv, Dh), or a paged pool
     #                      {"k_pool","v_pool"}: (P, bs, Hkv, Dh); written in place
     cache_len=None,      # int / 0-d tensor, OR a per-row (B,) int32 tensor
+    kv_source=None,      # cross-attention memory (B, Sm, D)
     pos_offset=None,     # (B,) left-padding per row (ragged prompts)
     block_table=None,    # (B, NB) int32 logical→physical block map (paged)
 ):
-    """Self-attention sublayer: projections + RoPE + attention.
+    """Attention sublayer: projections + RoPE + attention.
 
-    Returns (out, cache).  ``p`` is an :class:`Attention` module.
+    Returns (out, cache).  ``p`` is an :class:`Attention` module.  With
+    ``kv_source`` it is cross-attention: K/V come from the memory, with no
+    RoPE, a ``"full"`` mask and no cache (ref ``layers.py:332-334``,
+    ``:406-411``).
 
     Ragged support: ``positions`` may be per-row (B, S) with negative values
     marking left-padding (masked out of the keys, clamped to 0 for RoPE),
@@ -222,8 +327,9 @@ def attention_block(
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
 
     q = (x @ p.wq).view(B, S, H, Dh)
-    k = (x @ p.wk).view(B, S, Hkv, Dh)
-    v = (x @ p.wv).view(B, S, Hkv, Dh)
+    src = kv_source if kv_source is not None else x
+    k = (src @ p.wk).view(B, src.shape[1], Hkv, Dh)
+    v = (src @ p.wv).view(B, src.shape[1], Hkv, Dh)
     if cfg.attn_bias:
         q = q + p.bq.view(H, Dh)
         k = k + p.bk.view(Hkv, Dh)
@@ -232,10 +338,15 @@ def attention_block(
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
 
-    rope_pos = positions.clamp_min(0)    # pad slots: masked, not rotated
-    q = rope(q, rope_pos, cfg.rope_theta)
-    k = rope(k, rope_pos, cfg.rope_theta)
-    if cache is None:
+    if kv_source is None:                # self-attention: RoPE on q and k
+        rope_pos = positions.clamp_min(0)    # pad slots: masked, not rotated
+        q = rope(q, rope_pos, cfg.rope_theta)
+        k = rope(k, rope_pos, cfg.rope_theta)
+    if kv_source is not None:  # cross-attention: no RoPE, full mask over memory
+        k_pos, kv_len = torch.arange(src.shape[1], device=x.device), None
+        k_full, v_full = k, v
+        mask_kind = "full"
+    elif cache is None:
         k_pos, kv_len = positions, None
         k_full, v_full = k, v
     elif "k_pool" in cache:
@@ -302,8 +413,102 @@ def mlp_block(x, p):
     return h @ p.down
 
 
+def moe_capacity(tokens: int, n_experts: int, k: int, factor: float) -> int:
+    c = int(math.ceil(tokens * k / n_experts * factor))
+    return max(8, -(-c // 8) * 8)  # multiple of 8, floor 8
+
+
+def _moe_dispatch_group(xt, ids, E, K, C):
+    """Capacity dispatch of every token group at once (the reference
+    ``vmap``s its per-group function over them).  xt: (G, T, D); ids:
+    (G, T, K).  Returns the (G, E, C, D) expert buffer, built by gathering
+    each slot's token, and the route (sorted_e, dest_c, sort_idx), each
+    (G, T·K); ``dest_c == C`` marks a dropped (token, expert) pair."""
+    G, T, _ = xt.shape
+    TK = T * K
+    flat_e = ids.reshape(G, TK)
+    sort_idx = torch.argsort(flat_e, dim=-1, stable=True)     # jnp.argsort is stable
+    sorted_e = torch.gather(flat_e, 1, sort_idx)
+    experts = torch.arange(E, device=xt.device)
+    seg_starts = torch.searchsorted(sorted_e, experts.expand(G, E).contiguous())
+    seg_ends = torch.cat([seg_starts[:, 1:], seg_starts.new_full((G, 1), TK)], 1)
+    # slot (e, c) holds sorted position seg_starts[e]+c while inside segment
+    pos = seg_starts[..., None] + torch.arange(C, device=xt.device)     # (G, E, C)
+    valid = pos < seg_ends[..., None]
+    tok_for_slot = torch.gather(sort_idx, 1, pos.clamp(0, TK - 1).reshape(G, -1)
+                                ).reshape(G, E, C) // K
+    rows = torch.arange(G, device=xt.device)[:, None, None]
+    buf = torch.where(valid[..., None], xt[rows, tok_for_slot], 0)    # (G, E, C, D)
+    pos_in_e = torch.arange(TK, device=xt.device) - torch.gather(seg_starts, 1, sorted_e)
+    dest_c = torch.where(pos_in_e < C, pos_in_e, C)                   # C ⇒ dropped
+    return buf, (sorted_e, dest_c, sort_idx)
+
+
+def _moe_combine_group(out_buf, route, gates, K):
+    """Each (token, expert) pair's expert output back in token order,
+    weighted by its gate and summed over the K experts: (G, T, D).  A
+    dropped pair reads index C, the reference's ``mode="fill"`` zero: a
+    zero row padded at C."""
+    sorted_e, dest_c, sort_idx = route
+    G, T = gates.shape[:2]
+    filled = F.pad(out_buf, (0, 0, 0, 1))                    # (G, E, C + 1, D)
+    rows = torch.arange(G, device=out_buf.device)[:, None]
+    slot_out = filled[rows, sorted_e, dest_c]                # (G, T·K, D)
+    inv = torch.argsort(sort_idx, dim=-1)                    # a permutation: no ties
+    unsorted = slot_out[rows, inv]
+    return (unsorted.reshape(G, T, K, -1)
+            * gates[..., None].to(out_buf.dtype)).sum(dim=2)
+
+
+def _top_k(probs, K: int):
+    """``lax.top_k``: the K largest along the last axis, descending, the
+    lower index first on a tie (a stable descending sort keeps it;
+    ``torch.topk`` promises no order among equals)."""
+    values, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :K], idx[..., :K]
+
+
+def moe_block(x, p, cfg):
+    """Top-k capacity MoE: GShard-style dispatch, SwiGLU experts.
+
+    Tokens split into ``G`` groups along the batch axis (a leading batch
+    dim here); each group sorts its (token, expert) pairs by expert and
+    fills an (E, C, ·) buffer, pairs past an expert's capacity C dropped.
+    The router runs in f32; the experts are batched products over E.
+    Returns (out, aux) with aux the load-balancing loss."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    G, factor = _tuned_moe_dispatch(B, S, cfg, x.dtype)
+    Tg = (B // G) * S
+    C = moe_capacity(Tg, E, K, factor)
+    xg = x.reshape(G, Tg, D)
+
+    logits = xg.float() @ p.router.float()                  # (G, Tg, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, ids = _top_k(probs, K)                            # (G, Tg, K)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    buf, route = _moe_dispatch_group(xg, ids, E, K, C)       # (G, E, C, D)
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, p.gate))
+    h = h * torch.einsum("gecd,edf->gecf", buf, p.up)
+    out_buf = torch.einsum("gecf,efd->gecd", h, p.down)      # (G, E, C, D)
+
+    out = _moe_combine_group(out_buf, route, gates, K)       # (G, Tg, D)
+    aux = _load_balance_loss(probs.reshape(-1, E), ids.reshape(-1, K), E)
+    return out.reshape(B, S, D), aux
+
+
+def _load_balance_loss(probs, ids, E):
+    """Switch-style auxiliary load-balancing loss (returned for the trainer)."""
+    counts = torch.zeros(E, device=probs.device).index_add_(
+        0, ids.reshape(-1), torch.ones(ids.numel(), device=probs.device))
+    frac_tokens = counts / ids.numel()
+    frac_probs = probs.mean(dim=0)
+    return E * torch.sum(frac_tokens * frac_probs)
+
+
 # ---------------------------------------------------------------------------
-# Mamba-2 SSD scan (the oracle of the SSD kernel; ``ssd_block`` comes later)
+# Mamba-2 SSD mixer: the chunked scan (also the SSD kernel's oracle), the block
 # ---------------------------------------------------------------------------
 
 
@@ -374,3 +579,69 @@ def ssd_scan(xh, a, Bm, Cm, chunk: int, initial_state=None):
                          state_decay)
     y = (y_diag + y_off).reshape(B, S, H, P)[:, :S0]
     return y.to(xh.dtype), carry
+
+
+def ssd_block(x, p, cfg, *, cache=None, valid=None):
+    """Mamba-2 block: in_proj → causal conv1d → SSD → gated norm → out_proj.
+
+    cache: {"conv": (B, W-1, d_conv_ch), "state": (B, H, P, N) f32}, both
+    written in place (the new conv taps and the final state).  ``valid``
+    (B, S) bool marks real tokens of a left-padded ragged batch: invalid
+    steps feed zero conv taps, zero state input and unit decay (a = 0),
+    so the recurrence matches an unpadded run exactly.  S == 1 with a
+    cache is the single-step recurrence, in f32.  Returns (out, cache).
+    """
+    B, S, _ = x.shape
+    d_inner, H, P, N, _ = ssm_dims(cfg)
+    G = 1  # single B/C group
+    W = cfg.ssm_conv_width
+
+    z = x @ p.w_z
+    xbc = torch.cat([x @ p.w_x, x @ p.w_B, x @ p.w_C], dim=-1)
+    dt = F.softplus((x @ p.w_dt).float() + p.dt_bias.float())
+    if valid is not None:  # pad steps feed zero taps into the causal conv
+        xbc = torch.where(valid[..., None], xbc, 0)
+
+    # causal depthwise conv over (x, B, C) channels
+    if cache is None:
+        conv_in = F.pad(xbc, (0, 0, W - 1, 0))
+    else:
+        conv_in = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
+        cache["conv"].copy_(conv_in[:, -(W - 1):])
+    acc = 0
+    for i in range(W):
+        acc = acc + conv_in[:, i:i + S] * p.conv_w[i]
+    xbc = F.silu(acc + p.conv_b)
+
+    xs, Bm, Cm = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, S, H, P)
+    Bm = Bm.reshape(B, S, G, N)
+    Cm = Cm.reshape(B, S, G, N)
+    A = -torch.exp(p.A_log.float())                          # (H,), negative
+    a = dt * A                                               # (B,S,H) log-decay
+    xh = xs * dt[..., None].to(xs.dtype)
+    if valid is not None:  # pad steps: no state input, unit decay
+        xh = torch.where(valid[..., None, None], xh, 0)
+        a = torch.where(valid[..., None], a, 0.0)
+
+    chunk = _tuned_ssm_chunk(xh, N, cfg.ssm_chunk) if S > 1 else cfg.ssm_chunk
+    if cache is None:
+        y, _ = ssd_scan(xh, a, Bm, Cm, chunk)
+    elif S > 1:  # prefill with cache: chunked scan seeded by the cached state
+        y, final_state = ssd_scan(xh, a, Bm, Cm, chunk,
+                                  initial_state=cache["state"])
+        cache["state"].copy_(final_state)
+    else:        # single-step recurrence (S == 1)
+        st = cache["state"].float()                          # (B,H,P,N)
+        dec = torch.exp(a[:, 0])                             # (B,H)
+        Br = Bm[:, 0].repeat_interleave(H // G, dim=1) if G != H else Bm[:, 0]
+        Cr = Cm[:, 0].repeat_interleave(H // G, dim=1) if G != H else Cm[:, 0]
+        upd = torch.einsum("bhp,bhn->bhpn", xh[:, 0].float(), Br.float())
+        st = st * dec[..., None, None] + upd
+        y = torch.einsum("bhpn,bhn->bhp", st, Cr.float())[:, None]
+        cache["state"].copy_(st)
+
+    y = y + xs.to(y.dtype) * p.D.to(y.dtype)[None, None, :, None]
+    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p.norm)                      # gated RMSNorm
+    return y @ p.out_proj, cache

@@ -1,36 +1,45 @@
-"""Decoder-only LM assembly in PyTorch (port of ``repro/models/transformer.py``).
+"""The unified LM in PyTorch (port of ``repro/models/transformer.py``):
+dense, MoE, SSM, hybrid, VLM and encoder-decoder assembly.
 
-This slice ports the dense self-attention stack (qwen3-4b, internlm2-1.8b
-and the other ``family="dense"`` configs) for serving and training:
+One model covers the 10 registry architectures through the reference's
+per-arch *layer plan*: the (mixer, ffn) sublayers one scan step runs.
+Uniform archs step over ``n_layers`` identical blocks; jamba steps over
+superblocks of 8 sublayers (7 SSD + 1 attention, dense and MoE FFNs in
+turn); whisper adds a bidirectional encoder and cross-attention in the
+decoder; paligemma prepends patch embeddings under a prefix mask.
 ``layer_plan``, the parameter shapes, ``init_params``, ``_run_stack``
 (with remat), ``_prefill_like``, ``loss_fn``, ``forward``, ``prefill``,
-``decode_step``, ``init_cache``, ``paged_cache_shapes``,
-``init_paged_cache``, the abstract specs (``param_specs``,
-``cache_specs``, ``input_specs``: tensors on the meta device, the
-counterpart of JAX's ``ShapeDtypeStruct``) and ``warm_autotune`` for the
-train, prefill and decode stages.  MoE, SSM, hybrid and encoder-decoder
-plans come with a later slice; ``layer_plan`` raises for them.
+``decode_step``, the caches (dense, with the f32 SSD state, and the
+paged pool of a pure self-attention stack), the abstract specs
+(``param_specs``, ``cache_specs``, ``input_specs``: tensors on the meta
+device, the counterpart of JAX's ``ShapeDtypeStruct``) and
+``warm_autotune`` are all ported.
 
 Parameters live in :class:`LM`: ``embed`` (V_padded, D), ``final_norm``,
-one :class:`Block` per layer in ``blocks`` (an ``nn.ModuleList``) and,
-for untied configs, ``lm_head`` (D, V_padded).  The reference stacks the
-layers on a leading scan axis; the converter (``repro_torch.convert``)
+one scan step per entry of ``blocks`` (an ``nn.ModuleList``) and, for
+untied configs, ``lm_head`` (D, V_padded); with an encoder, ``encoder``
+(one :class:`Block` per layer) and ``enc_final_norm``.  A one-sublayer
+plan keeps one :class:`Block` per step (``blocks.3.attn.wq``, the dense
+names); a superblock is an ``nn.ModuleList`` of Blocks
+(``blocks.0.5.ssm.w_x``), see :func:`param_name`.  The reference stacks
+the steps on a leading scan axis; the converter (``repro_torch.convert``)
 unstacks them.  Caches keep the stacked layout
-(``{"sub0": {"k": (n_layers, B, L, Hkv, Dh), ...}}``) and are written in
+(``{"sub0": {"k": (n_scan, B, L, Hkv, Dh), ...}}``) and are written in
 place; the functions still return them so call sites read like the
 reference.
 
 Parameters are built with ``requires_grad=False``, so serving builds no
 graph; a trainer turns them on for its own model
 (``model.requires_grad_(True)``).  ``loss_fn`` and ``forward`` then carry
-gradients, and with grad enabled each layer runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` per scanned
-layer): the backward keeps one (B, S, D) input per layer and recomputes
-the rest.  ``prefill`` and ``decode_step`` run under ``no_grad``.
+gradients, and with grad enabled each scan step runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+scan body: a jamba superblock is one checkpoint): the backward keeps one
+(B, S, D) input per step and recomputes the rest.  ``prefill`` and
+``decode_step`` run under ``no_grad``.
 
 Entry points:
     loss_fn(params, batch, cfg, seq_chunk=)  -- training loss, {"ce", "aux"}
-    forward(params, batch, cfg)              -- logits over all positions
+    forward(params, batch, cfg)              -- logits over text positions, aux
     prefill(params, batch, cfg, max_len=)    -- last-token logits + dense cache
     decode_step(params, cache, batch, cfg)   -- step over a dense or paged cache
     init_params(cfg, seed, device=)          -- the reference's numpy draws
@@ -52,11 +61,16 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (
     MLP,
+    SSM,
     Attention,
+    MoE,
     _param,
     attention_block,
     mlp_block,
+    moe_block,
     rms_norm,
+    ssd_block,
+    ssm_dims,
 )
 
 __all__ = [
@@ -64,6 +78,7 @@ __all__ = [
     "LM",
     "layer_plan",
     "param_leaves",
+    "param_name",
     "param_of",
     "init_params",
     "loss_fn",
@@ -81,33 +96,67 @@ __all__ = [
 ]
 
 DTYPE = torch.bfloat16
-_NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
-_ZEROS = ("bq", "bk", "bv")
+# leaves the reference's init sets to zeros (no draw), and to ones
+_ZEROS = ("ln1", "ln2", "ln_cross", "final_norm", "enc_final_norm", "norm",
+          "q_norm", "k_norm", "conv_b", "bq", "bk", "bv", "dt_bias")
+_ONES = ("D",)
+_ENC_PLAN = [("attn", "mlp")]
 
 
 # ---------------------------------------------------------------------------
-# Layer plan and parameters
+# Layer plans and parameters
 # ---------------------------------------------------------------------------
 
 
-def layer_plan(cfg: ArchConfig) -> tuple[int, list[tuple[str, str]]]:
-    """(n_layers, [(mixer, ffn)]) — the dense branch of the reference."""
-    if (cfg.family in ("ssm", "hybrid") or cfg.hybrid_period or cfg.is_moe
-            or cfg.n_encoder_layers or cfg.n_prefix):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) needs MoE/SSM/cross-attention/prefix "
-            f"layers, which the port has not reached yet (ROADMAP.md, "
-            f"Queue 1: 'MoE and SSD layers, cross-attention')")
-    return cfg.n_layers, [("attn", "mlp")]
+def layer_plan(cfg: ArchConfig) -> tuple[int, list[tuple[str, str | None]]]:
+    """(n_scan, [(mixer, ffn), ...] per scan step), as the reference's."""
+    if cfg.family == "ssm":
+        return cfg.n_layers, [("ssm", None)]
+    if cfg.hybrid_period:
+        if cfg.n_layers % cfg.hybrid_period:
+            raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                             f"multiple of hybrid_period {cfg.hybrid_period}")
+        plan = []
+        for i in range(cfg.hybrid_period):
+            mixer = "attn" if i == cfg.hybrid_attn_index else "ssm"
+            ffn = "moe" if (cfg.moe_every and i % cfg.moe_every == 1) else "mlp"
+            plan.append((mixer, ffn))
+        return cfg.n_layers // cfg.hybrid_period, plan
+    mixer = "attn_cross" if cfg.n_encoder_layers else "attn"
+    ffn = "moe" if cfg.is_moe else "mlp"
+    return cfg.n_layers, [(mixer, ffn)]
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, *, dtype, device):
+    """One (mixer, ffn) sublayer: ``ln1`` and ``attn`` (plus ``ln_cross``
+    and ``cross`` for ``attn_cross``) or ``ssm``; then, unless ffn is
+    None, ``ln2`` and ``mlp`` or ``moe``."""
+
+    def __init__(self, cfg, mixer: str = "attn", ffn: str | None = "mlp", *,
+                 dtype, device):
         super().__init__()
         self.ln1 = _param((cfg.d_model,), dtype, device)
-        self.attn = Attention(cfg, dtype=dtype, device=device)
-        self.ln2 = _param((cfg.d_model,), dtype, device)
-        self.mlp = MLP(cfg, dtype=dtype, device=device)
+        if mixer.startswith("attn"):
+            self.attn = Attention(cfg, dtype=dtype, device=device)
+            if mixer == "attn_cross":
+                self.cross = Attention(cfg, dtype=dtype, device=device)
+                self.ln_cross = _param((cfg.d_model,), dtype, device)
+        else:
+            self.ssm = SSM(cfg, dtype=dtype, device=device)
+        if ffn is not None:
+            self.ln2 = _param((cfg.d_model,), dtype, device)
+            module = MLP if ffn == "mlp" else MoE
+            setattr(self, ffn, module(cfg, dtype=dtype, device=device))
+
+
+def _scan_step(cfg, plan, *, dtype, device) -> nn.Module:
+    """One scan step's parameters: a Block, or a superblock of Blocks."""
+    blocks = [Block(cfg, m, f, dtype=dtype, device=device) for m, f in plan]
+    return blocks[0] if len(blocks) == 1 else nn.ModuleList(blocks)
+
+
+def _subs(step: nn.Module) -> list:
+    return list(step) if isinstance(step, nn.ModuleList) else [step]
 
 
 def _device(device) -> torch.device:
@@ -121,44 +170,97 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype=DTYPE, device="cuda"):
         super().__init__()
         device = _device(device)
-        n_layers, _ = layer_plan(cfg)
+        n_scan, plan = layer_plan(cfg)
+        self.cfg = cfg
         V = cfg.padded_vocab()
         self.embed = _param((V, cfg.d_model), dtype, device)
         self.final_norm = _param((cfg.d_model,), dtype, device)
         self.blocks = nn.ModuleList(
-            Block(cfg, dtype=dtype, device=device) for _ in range(n_layers))
+            _scan_step(cfg, plan, dtype=dtype, device=device)
+            for _ in range(n_scan))
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, V), dtype, device)
+        if cfg.n_encoder_layers:
+            self.encoder = nn.ModuleList(
+                Block(cfg, dtype=dtype, device=device)
+                for _ in range(cfg.n_encoder_layers))
+            self.enc_final_norm = _param((cfg.d_model,), dtype, device)
+
+
+def _attn_shapes(cfg) -> dict:
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    s = {"wq": (D, H * Dh), "wk": (D, Hkv * Dh), "wv": (D, Hkv * Dh),
+         "wo": (H * Dh, D)}
+    if cfg.qk_norm:
+        s.update(q_norm=(Dh,), k_norm=(Dh,))
+    if cfg.attn_bias:
+        s.update(bq=(H * Dh,), bk=(Hkv * Dh,), bv=(Hkv * Dh,))
+    return s
+
+
+def _mlp_shapes(cfg) -> dict:
+    return {"gate": (cfg.d_model, cfg.d_ff), "up": (cfg.d_model, cfg.d_ff),
+            "down": (cfg.d_ff, cfg.d_model)}
+
+
+def _moe_shapes(cfg) -> dict:
+    D, E, Ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff_
+    return {"router": (D, E), "gate": (E, D, Ff), "up": (E, D, Ff),
+            "down": (E, Ff, D)}
+
+
+def _ssm_shapes(cfg) -> dict:
+    D = cfg.d_model
+    d_inner, H, _, N, d_conv_ch = ssm_dims(cfg)
+    return {"w_z": (D, d_inner), "w_x": (D, d_inner), "w_B": (D, N),
+            "w_C": (D, N), "w_dt": (D, H),
+            "conv_w": (cfg.ssm_conv_width, d_conv_ch), "conv_b": (d_conv_ch,),
+            "dt_bias": (H,), "A_log": (H,), "D": (H,), "norm": (d_inner,),
+            "out_proj": (d_inner, D)}
+
+
+def _block_shapes(cfg, plan) -> dict:
+    out = {}
+    for i, (mixer, ffn) in enumerate(plan):
+        sub: dict = {"ln1": (cfg.d_model,)}
+        if mixer.startswith("attn"):
+            sub["attn"] = _attn_shapes(cfg)
+            if mixer == "attn_cross":
+                sub["cross"] = _attn_shapes(cfg)
+                sub["ln_cross"] = (cfg.d_model,)
+        else:
+            sub["ssm"] = _ssm_shapes(cfg)
+        if ffn is not None:
+            sub["ln2"] = (cfg.d_model,)
+            sub[ffn] = _mlp_shapes(cfg) if ffn == "mlp" else _moe_shapes(cfg)
+        out[f"sub{i}"] = sub
+    return out
+
+
+def _stack(tree, n: int):
+    return ({k: _stack(v, n) for k, v in tree.items()} if isinstance(tree, dict)
+            else (n, *tree))
 
 
 def _shape_tree(cfg: ArchConfig) -> dict:
-    """The reference's parameter shape tree (stacked on the layer axis)."""
-    n_layers, _ = layer_plan(cfg)
-    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    attn = {"wq": (D, H * Dh), "wk": (D, Hkv * Dh), "wv": (D, Hkv * Dh),
-            "wo": (H * Dh, D)}
-    if cfg.qk_norm:
-        attn.update(q_norm=(Dh,), k_norm=(Dh,))
-    if cfg.attn_bias:
-        attn.update(bq=(H * Dh,), bk=(Hkv * Dh,), bv=(Hkv * Dh,))
-    sub = {"ln1": (D,), "attn": attn, "ln2": (D,),
-           "mlp": {"gate": (D, cfg.d_ff), "up": (D, cfg.d_ff),
-                   "down": (cfg.d_ff, D)}}
-
-    def stack(t):
-        return ({k: stack(v) for k, v in t.items()} if isinstance(t, dict)
-                else (n_layers, *t))
-
-    tree = {"embed": (cfg.padded_vocab(), D), "final_norm": (D,),
-            "blocks": {"sub0": stack(sub)}}
+    """The reference's parameter shape tree (stacked on the scan axis)."""
+    n_scan, plan = layer_plan(cfg)
+    V = cfg.padded_vocab()
+    tree = {"embed": (V, cfg.d_model), "final_norm": (cfg.d_model,),
+            "blocks": _stack(_block_shapes(cfg, plan), n_scan)}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = (D, cfg.padded_vocab())
+        tree["lm_head"] = (cfg.d_model, V)
+    if cfg.n_encoder_layers:
+        tree["encoder"] = _stack(_block_shapes(cfg, _ENC_PLAN),
+                                 cfg.n_encoder_layers)
+        tree["enc_final_norm"] = (cfg.d_model,)
     return tree
 
 
 def param_leaves(cfg: ArchConfig) -> list[tuple[tuple[str, ...], tuple]]:
     """(path, shape) of every parameter in the reference's leaf order:
-    JAX flattens dicts by sorted key, so this is the order of its draws."""
+    JAX flattens dicts by sorted key (capitals first), so this is the
+    order of its draws."""
     out = []
 
     def walk(path, t):
@@ -172,37 +274,53 @@ def param_leaves(cfg: ArchConfig) -> list[tuple[tuple[str, ...], tuple]]:
     return out
 
 
+def param_name(cfg: ArchConfig, path: tuple[str, ...],
+               layer: int | None = None) -> str:
+    """The port's parameter name of a reference path and scan step:
+    ``("blocks", "sub0", "attn", "wq")`` at step 3 is ``blocks.3.attn.wq``,
+    ``("blocks", "sub5", "ssm", "w_x")`` of a superblock plan
+    ``blocks.3.5.ssm.w_x``, ``("encoder", "sub0", ...)`` ``encoder.3...``."""
+    if path[0] not in ("blocks", "encoder"):
+        return path[0]
+    superblock = path[0] == "blocks" and len(layer_plan(cfg)[1]) > 1
+    sub = (path[1].removeprefix("sub"),) if superblock else ()
+    return ".".join((path[0], str(layer), *sub, *path[2:]))
+
+
 def param_of(model: LM, path: tuple[str, ...], layer: int | None = None):
-    """The parameter at a reference path; ``blocks/sub0/...`` paths name
-    the tensor of one ``layer``."""
-    if path[0] == "blocks":
-        obj = model.blocks[layer]
-        for name in path[2:]:
-            obj = getattr(obj, name)
-        return obj
-    return getattr(model, path[0])
+    """The parameter at a reference path; stacked paths (``blocks/...``,
+    ``encoder/...``) name the tensor of one scan step ``layer``."""
+    return model.get_parameter(param_name(model.cfg, path, layer))
 
 
 @torch.no_grad()
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda",
                 dtype=DTYPE) -> LM:
     """The reference's numpy init, value for value: norms and biases zero,
-    every matrix ``standard_normal(shape) / sqrt(shape[-2])`` drawn in the
+    the SSD skip ``D`` ones, ``A_log = log(uniform(1, 16))`` and every
+    matrix ``standard_normal(shape) / sqrt(shape[-2])``, drawn in the
     reference's leaf order and rounded to bf16.  Stacked leaves are drawn
-    one layer slice at a time — ``standard_normal((L, a, b))`` equals L
-    consecutive ``(a, b)`` draws — so host memory stays at one slice."""
+    one scan step at a time — ``standard_normal((L, a, b))`` equals L
+    consecutive ``(a, b)`` draws, and so does ``uniform`` — so host memory
+    stays at one slice."""
     model = LM(cfg, dtype=dtype, device=device)
     rng = np.random.default_rng(seed)
     for path, shape in param_leaves(cfg):
-        if path[-1] in _NORMS or path[-1] in _ZEROS:
+        name = path[-1]
+        if name in _ZEROS:
             continue                    # zeros already, and no draw
-        scale = 1.0 / math.sqrt(shape[-2])
-        stacked = path[0] == "blocks"
+        stacked = path[0] in ("blocks", "encoder")
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         for layer in range(shape[0] if stacked else 1):
-            draw = rng.standard_normal(shape[1:] if stacked else shape) * scale
+            target = param_of(model, path, layer if stacked else None)
+            if name in _ONES:
+                target.fill_(1.0)
+                continue
+            size = shape[1:] if stacked else shape
+            draw = (np.log(rng.uniform(1.0, 16.0, size)) if name == "A_log"
+                    else rng.standard_normal(size) * (1.0 / math.sqrt(fan_in)))
             # round f64 → bf16 first, as the reference does, then to dtype
-            value = torch.from_numpy(draw).to(torch.bfloat16).to(dtype)
-            param_of(model, path, layer if stacked else None).copy_(value)
+            target.copy_(torch.from_numpy(draw).to(torch.bfloat16).to(dtype))
     return model
 
 
@@ -219,56 +337,100 @@ def _mask_kind(cfg: ArchConfig) -> str:
     return "causal"
 
 
-def _layer_cache(cache, layer: int):
-    return None if cache is None else {
-        name: leaf[layer] for name, leaf in cache["sub0"].items()}
+def _step_caches(cache, layer: int, n_subs: int) -> list:
+    """Each sublayer's cache leaves at one scan step (views, written in
+    place), or Nones."""
+    if cache is None:
+        return [None] * n_subs
+    return [{name: leaf[layer] for name, leaf in cache[f"sub{i}"].items()}
+            for i in range(n_subs)]
 
 
-def _block(x, blk, cfg, positions, mask_kind, cache, cache_len, pos_offset,
-           block_table):
-    """One layer: attention and MLP sublayers, each with its residual."""
-    h = rms_norm(x, blk.ln1)
-    mo, _ = attention_block(
-        h, blk.attn, cfg, positions=positions, mask_kind=mask_kind,
-        cache=cache, cache_len=cache_len, pos_offset=pos_offset,
-        block_table=block_table)
-    x = x + mo
-    return x + mlp_block(rms_norm(x, blk.ln2), blk.mlp)
+def _block(x, aux, step, cfg, plan, positions, mask_kind, memory, caches,
+          cache_len, pos_offset, block_table, ssm_valid):
+    """One scan step: every (mixer, ffn) sublayer of the plan, each with
+    its residual; MoE aux losses are added to ``aux``."""
+    for (mixer, ffn), blk, sc in zip(plan, _subs(step), caches):
+        h = rms_norm(x, blk.ln1)
+        if mixer.startswith("attn"):
+            mo, _ = attention_block(
+                h, blk.attn, cfg, positions=positions, mask_kind=mask_kind,
+                cache=sc, cache_len=cache_len, pos_offset=pos_offset,
+                block_table=block_table)
+            x = x + mo
+            if mixer == "attn_cross":
+                co, _ = attention_block(
+                    rms_norm(x, blk.ln_cross), blk.cross, cfg,
+                    positions=positions, mask_kind="full", kv_source=memory)
+                x = x + co
+        else:
+            mo, _ = ssd_block(h, blk.ssm, cfg, cache=sc, valid=ssm_valid)
+            x = x + mo
+        if ffn == "mlp":
+            x = x + mlp_block(rms_norm(x, blk.ln2), blk.mlp)
+        elif ffn == "moe":
+            fo, a = moe_block(rms_norm(x, blk.ln2), blk.moe, cfg)
+            x = x + fo
+            aux = aux + a
+    return x, aux
 
 
-def _run_stack(blocks, x, cfg, *, positions, mask_kind, cache=None,
-               cache_len=None, pos_offset=None, block_table=None):
-    """Run the layers over x; cache leaves are written in place.  With
-    grad enabled (training: no cache) each layer runs under a
+def _run_stack(blocks, x, cfg, plan, *, positions, mask_kind, memory=None,
+               cache=None, cache_len=None, pos_offset=None, block_table=None):
+    """Run the scan steps over x → (x, aux); cache leaves are written in
+    place.  ``pos_offset`` (B,) marks left-padding per row: attention masks
+    the pad slots, SSD mixers treat them as zero-input unit-decay steps.
+    With grad enabled (training: no cache) each step runs under a
     non-reentrant checkpoint, the reference's remat (the blocks draw no
     random numbers, so no RNG state is kept)."""
+    ssm_valid = positions >= 0 if positions.ndim == 2 else None
     remat = cache is None and torch.is_grad_enabled()
-    for layer, blk in enumerate(blocks):
-        args = (x, blk, cfg, positions, mask_kind, _layer_cache(cache, layer),
-                cache_len, pos_offset, block_table)
-        x = (checkpoint(_block, *args, use_reentrant=False,
-                        preserve_rng_state=False) if remat else _block(*args))
-    return x
+    aux = torch.zeros((), device=x.device)
+    for layer, step in enumerate(blocks):
+        args = (x, aux, step, cfg, plan, positions, mask_kind, memory,
+                _step_caches(cache, layer, len(plan)), cache_len, pos_offset,
+                block_table, ssm_valid)
+        x, aux = (checkpoint(_block, *args, use_reentrant=False,
+                             preserve_rng_state=False) if remat else _block(*args))
+    return x, aux
 
 
 def _prefill_like(cfg, params, batch, *, max_len, want_cache):
-    """Embeddings → stack → final norm.  batch: tokens (B, S) int
-    [+ pos_offset (B,)], where ``pos_offset`` marks per-row left-padding:
-    positions become per-row and pad slots carry negatives.  Used by
-    training (want_cache=False) and prefill (want_cache=True)."""
-    layer_plan(cfg)
+    """Embeddings → (encoder) → stack → final norm → (x, aux, cache,
+    memory).  batch: tokens (B, S) int [+ patches (B, n_prefix, D) |
+    frames (B, F, D) | pos_offset (B,)], where ``pos_offset`` marks per-row
+    left-padding: positions become per-row and pad slots carry negatives.
+    Used by training (want_cache=False) and prefill (want_cache=True)."""
+    _, plan = layer_plan(cfg)
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
     x = params.embed[tokens.long()]
-    positions = torch.arange(S, device=x.device)
+    if cfg.n_prefix:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
     pos_offset = batch.get("pos_offset")
     if pos_offset is not None:
+        if cfg.n_prefix or cfg.n_encoder_layers:
+            raise ValueError("ragged (left-padded) prompts need a plain "
+                             "self-attention stack")
         positions = positions[None, :] - pos_offset[:, None]     # (B, S)
-    cache = init_cache(cfg, B, max_len, device=x.device) if want_cache else None
-    x = _run_stack(params.blocks, x, cfg, positions=positions,
-                   mask_kind=_mask_kind(cfg), cache=cache,
-                   cache_len=0 if want_cache else None, pos_offset=pos_offset)
-    return rms_norm(x, params.final_norm), cache
+
+    memory = None
+    if cfg.n_encoder_layers:
+        frames = batch["frames"].to(x.dtype)
+        memory, _ = _run_stack(
+            params.encoder, frames, cfg, _ENC_PLAN,
+            positions=torch.arange(frames.shape[1], device=x.device),
+            mask_kind="full")
+        memory = rms_norm(memory, params.enc_final_norm)
+
+    cache = (init_cache(cfg, B, max_len, device=x.device, conv_dtype=x.dtype)
+             if want_cache else None)
+    x, aux = _run_stack(params.blocks, x, cfg, plan, positions=positions,
+                        mask_kind=_mask_kind(cfg), memory=memory, cache=cache,
+                        cache_len=0 if want_cache else None,
+                        pos_offset=pos_offset)
+    return rms_norm(x, params.final_norm), aux, cache, memory
 
 
 def _logits(cfg, params, x):
@@ -276,10 +438,15 @@ def _logits(cfg, params, x):
     return x @ head
 
 
+def _text(cfg, x):
+    """Drop the prefix (patch) positions: logits cover text tokens only."""
+    return x[:, cfg.n_prefix:] if cfg.n_prefix else x
+
+
 def forward(params, batch, cfg: ArchConfig):
-    """Training-mode forward → (logits over all positions, aux loss 0)."""
-    x, _ = _prefill_like(cfg, params, batch, max_len=0, want_cache=False)
-    return _logits(cfg, params, x), torch.zeros((), device=x.device)
+    """Training-mode forward → (logits over text positions, aux loss)."""
+    x, aux, _, _ = _prefill_like(cfg, params, batch, max_len=0, want_cache=False)
+    return _logits(cfg, params, _text(cfg, x)), aux
 
 
 def _ce_sums(logits, targets):
@@ -297,17 +464,18 @@ def _chunk_ce(xc, head, tc, vc):
 
 def loss_fn(params, batch, cfg: ArchConfig, *, z_loss: float = 1e-4,
             moe_aux: float = 1e-2, seq_chunk: int | None = None):
-    """Next-token CE (f32 logsumexp over the padded vocab, pad columns
-    included, as the reference) + z-loss + MoE load-balance aux (0 for
-    the dense stack) → (loss, {"ce", "aux"}).
+    """Next-token CE over the text positions (f32 logsumexp over the
+    padded vocab, pad columns included, as the reference) + z-loss + the
+    MoE load-balance aux summed over the MoE sublayers (0 without one) →
+    (loss, {"ce", "aux"}).
 
     ``seq_chunk``: logits and CE over sequence chunks of that many tokens
     (S − 1 padded up to whole chunks, the padding masked, sums divided by
     B·(S − 1)).  With grad enabled each chunk runs under a checkpoint, so
     neither pass holds more than one chunk's (B, seq_chunk, V) logits."""
     tokens = batch["tokens"]
-    x, _ = _prefill_like(cfg, params, batch, max_len=0, want_cache=False)
-    aux = torch.zeros((), device=x.device)
+    x, aux, _, _ = _prefill_like(cfg, params, batch, max_len=0, want_cache=False)
+    x = _text(cfg, x)
     if seq_chunk is None:
         lse, ce = _ce_sums(_logits(cfg, params, x)[:, :-1].float(), tokens[:, 1:])
         ce, zl = torch.mean(ce), torch.mean(lse ** 2)
@@ -336,13 +504,17 @@ def loss_fn(params, batch, cfg: ArchConfig, *, z_loss: float = 1e-4,
 
 @torch.no_grad()
 def prefill(params, batch, cfg: ArchConfig, *, max_len: int | None = None):
-    """Process the prompt; return {logits (B, 1, V), cache, cache_len}."""
-    S = batch["tokens"].shape[1]
+    """Process the prompt (and the prefix or the encoder's frames); return
+    {logits (B, 1, V), cache, cache_len = S + n_prefix[, memory]}."""
+    S = batch["tokens"].shape[1] + cfg.n_prefix
     max_len = max_len if max_len is not None else S
-    x, cache = _prefill_like(cfg, params, batch, max_len=max_len,
-                             want_cache=True)
-    return {"logits": _logits(cfg, params, x[:, -1:]), "cache": cache,
-            "cache_len": S}
+    x, _, cache, memory = _prefill_like(cfg, params, batch, max_len=max_len,
+                                        want_cache=True)
+    out = {"logits": _logits(cfg, params, x[:, -1:]), "cache": cache,
+           "cache_len": S}
+    if memory is not None:
+        out["memory"] = memory
+    return out
 
 
 @torch.no_grad()
@@ -350,11 +522,12 @@ def decode_step(params, cache, batch, cfg: ArchConfig):
     """One step over a cache → (logits (B, S, V), cache written in place).
 
     batch: tokens (B, S), cache_len (int, or a per-row (B,) int32 tensor)
-    [, pos_offset (B,) for left-padded prompts, block_table (B, NB) int32
-    when ``cache`` is a paged pool].  With a paged pool S may exceed 1:
-    chunked prefill feeds prompt chunks through this path.
+    [, memory (B, Sm, D) for cross-attention, pos_offset (B,) for
+    left-padded prompts, block_table (B, NB) int32 when ``cache`` is a
+    paged pool].  With a paged pool S may exceed 1: chunked prefill feeds
+    prompt chunks through this path.
     """
-    layer_plan(cfg)
+    _, plan = layer_plan(cfg)
     tokens, cache_len = batch["tokens"], batch["cache_len"]
     pos_offset = batch.get("pos_offset")
     B, S = tokens.shape
@@ -367,9 +540,10 @@ def decode_step(params, cache, batch, cfg: ArchConfig):
         positions = cl[:, None] + steps[None, :]                  # (B, S)
     else:
         positions = int(cache_len) + steps
-    x = _run_stack(params.blocks, x, cfg, positions=positions,
-                   mask_kind=_mask_kind(cfg), cache=cache, cache_len=cache_len,
-                   pos_offset=pos_offset, block_table=batch.get("block_table"))
+    x, _ = _run_stack(params.blocks, x, cfg, plan, positions=positions,
+                      mask_kind=_mask_kind(cfg), memory=batch.get("memory"),
+                      cache=cache, cache_len=cache_len, pos_offset=pos_offset,
+                      block_table=batch.get("block_table"))
     x = rms_norm(x, params.final_norm)
     return _logits(cfg, params, x), cache
 
@@ -379,29 +553,52 @@ def decode_step(params, cache, batch, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
+def _sub_cache_shape(cfg, mixer, B, max_len) -> dict:
+    if mixer.startswith("attn"):
+        Hkv, Dh = cfg.n_kv_heads, cfg.head_dim_
+        return {"k": (B, max_len, Hkv, Dh), "v": (B, max_len, Hkv, Dh)}
+    _, H, P, N, d_conv_ch = ssm_dims(cfg)
+    return {"conv": (B, cfg.ssm_conv_width - 1, d_conv_ch),
+            "state": (B, H, P, N)}
+
+
 def cache_shapes(cfg: ArchConfig, B: int, max_len: int) -> dict:
-    n_layers, _ = layer_plan(cfg)
-    s = (n_layers, B, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    return {"sub0": {"k": s, "v": s}}
+    n_scan, plan = layer_plan(cfg)
+    return {f"sub{i}": {k: (n_scan, *s) for k, s in
+                        _sub_cache_shape(cfg, mixer, B, max_len).items()}
+            for i, (mixer, _) in enumerate(plan)}
 
 
 def init_cache(cfg: ArchConfig, B: int, max_len: int, *, device="cuda",
-               dtype=DTYPE) -> dict:
-    """Zero dense KV cache, bf16 like the reference's."""
+               dtype=DTYPE, conv_dtype=None) -> dict:
+    """Zero dense cache: K/V (and the SSD conv taps) bf16 like the
+    reference's, the SSD ``state`` f32.  ``conv_dtype`` (default
+    ``dtype``): ``prefill`` keeps the conv taps in the activations' dtype,
+    as the reference's scan returns them."""
     device = _device(device)
-    return {sub: {name: torch.zeros(s, dtype=dtype, device=device)
+    kinds = {"state": torch.float32, "conv": conv_dtype or dtype}
+    return {sub: {name: torch.zeros(s, dtype=kinds.get(name, dtype),
+                                    device=device)
                   for name, s in leaves.items()}
             for sub, leaves in cache_shapes(cfg, B, max_len).items()}
 
 
 def paged_cache_shapes(cfg: ArchConfig, n_blocks: int, block_size: int) -> dict:
-    """Shapes of the paged KV block pool: each layer stores K/V in
-    ``n_blocks`` blocks of ``block_size`` tokens; a per-slot block table
-    maps logical positions to physical blocks.  Physical block 0 is
-    reserved as scratch for idle slots."""
-    n_layers, _ = layer_plan(cfg)
-    s = (n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim_)
-    return {"sub0": {"k_pool": s, "v_pool": s}}
+    """Shapes of the paged KV block pool: each self-attention sublayer
+    stores K/V in ``n_blocks`` blocks of ``block_size`` tokens; a per-slot
+    block table maps logical positions to physical blocks.  Physical block
+    0 is reserved as scratch for idle slots.  A plan with any other mixer
+    raises, as the reference's does."""
+    n_scan, plan = layer_plan(cfg)
+    out = {}
+    for i, (mixer, _) in enumerate(plan):
+        if mixer != "attn":
+            raise ValueError(
+                f"paged KV cache needs a pure self-attention stack; "
+                f"{cfg.name} has a {mixer!r} mixer (use the dense cache)")
+        s = (n_scan, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim_)
+        out[f"sub{i}"] = {"k_pool": s, "v_pool": s}
+    return out
 
 
 def init_paged_cache(cfg: ArchConfig, n_blocks: int, block_size: int, *,
@@ -428,7 +625,7 @@ def param_specs(cfg: ArchConfig) -> LM:
 
 
 def cache_specs(cfg: ArchConfig, B: int, max_len: int) -> dict:
-    """The dense KV cache as meta tensors."""
+    """The dense cache as meta tensors."""
     return init_cache(cfg, B, max_len, device=_META)
 
 
@@ -436,20 +633,28 @@ def input_specs(cfg: ArchConfig, kind: str, *, batch_size: int,
                 seq_len: int) -> dict:
     """Meta stand-ins for the step inputs of one workload cell.
 
-    train, prefill → {batch={tokens (B, S)}} (training reads its targets
-    from the tokens);
-    decode → {cache (dense, S long), batch={tokens (B, 1), cache_len}}.
-    ``cache_len`` is the int 0: a meta tensor has no value to read, and
-    no shape downstream depends on it."""
+    train, prefill → {batch={tokens (B, S) [, patches | frames]}}
+    (training reads its targets from the tokens);
+    decode → {cache (dense, S long), batch={tokens (B, 1), cache_len
+    [, memory]}}.  ``cache_len`` is the int 0: a meta tensor has no value
+    to read, and no shape downstream depends on it."""
     B, S = batch_size, seq_len
+
+    def spec(*shape, dtype=DTYPE):
+        return torch.empty(shape, dtype=dtype, device=_META)
+
     if kind in ("train", "prefill"):
-        return {"batch": {"tokens": torch.empty((B, S), dtype=torch.int32,
-                                                device=_META)}}
+        batch = {"tokens": spec(B, S, dtype=torch.int32)}
+        if cfg.n_prefix:
+            batch["patches"] = spec(B, cfg.n_prefix, cfg.d_model)
+        if cfg.n_encoder_layers:
+            batch["frames"] = spec(B, cfg.n_audio_frames, cfg.d_model)
+        return {"batch": batch}
     if kind == "decode":
-        return {"cache": cache_specs(cfg, B, S),
-                "batch": {"tokens": torch.empty((B, 1), dtype=torch.int32,
-                                                device=_META),
-                          "cache_len": 0}}
+        batch = {"tokens": spec(B, 1, dtype=torch.int32), "cache_len": 0}
+        if cfg.n_encoder_layers:
+            batch["memory"] = spec(B, cfg.n_audio_frames, cfg.d_model)
+        return {"cache": cache_specs(cfg, B, S), "batch": batch}
     raise ValueError(f"no input specs for stage {kind!r}")
 
 

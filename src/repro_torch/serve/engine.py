@@ -3,8 +3,10 @@
 
 One fixed batch prefills together and decodes until every member
 finishes; it is the baseline the continuous-batching engine is compared
-with.  Ragged (mixed-length) prompts are left-padded with a per-row
-offset.  Sampling is greedy at temperature 0, else ``torch.multinomial``
+with.  It serves every layer plan over the dense cache (the SSD state
+included).  Ragged (mixed-length) prompts are left-padded with a per-row
+offset; a VLM's patch prefix refuses them, as in the reference, and the
+cache's fill counts the prefix (``prefill``'s ``cache_len``).  Sampling is greedy at temperature 0, else ``torch.multinomial``
 driven by a ``torch.Generator`` seeded from ``ServeConfig.seed``.
 
 Not in this slice: placement admission through the cost engine
@@ -94,9 +96,12 @@ class ServeEngine:
         pad = S0 - lens
         pos_offset = None
         if pad.any():
+            if self.cfg.n_prefix:
+                raise ValueError("ragged prompts need a plain decoder stack")
             pos_offset = torch.from_numpy(pad.astype(np.int32)).to(self.device)
             batch["pos_offset"] = pos_offset
         out = T.prefill(self.params, batch, self.cfg, max_len=self.scfg.max_len)
+        # the host's count of the cache's fill: the prompt and any prefix
         cache, cache_len = out["cache"], out["cache_len"]
         tok = self._sample(out["logits"])
         generated = [tok]

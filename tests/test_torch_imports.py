@@ -231,3 +231,28 @@ def test_new_modules_of_the_tuner_slice_are_covered():
                        "kernels/conv_mm/csrc/conv_mm.cu",
                        "kernels/flash_attention/csrc/flash_attention.cu",
                        "kernels/ssm_scan/csrc/ssd_chunk.cu"}
+
+
+def test_new_modules_of_the_layer_plan_slice_are_covered():
+    """The MoE, SSD and cross-attention slice: the layers and the plan
+    functions it adds, named so that a rename cannot drop them; the probe
+    above holds that none of them pulls in ``jax`` or ``repro``."""
+    import importlib
+
+    expected = {
+        "repro_torch.models.layers": {"MoE", "SSM", "moe_block", "moe_capacity",
+                                      "ssd_block", "attention_block"},
+        "repro_torch.models.transformer": {"layer_plan", "param_name",
+                                           "cache_shapes", "input_specs",
+                                           "paged_cache_shapes", "warm_autotune"},
+        "repro_torch.kernels.moe_dispatch.tiling": {"shape_key", "cost"},
+        "repro_torch.serve.engine": {"ServeEngine"},
+    }
+    for name, names in expected.items():
+        mod = importlib.import_module(name)
+        assert all(hasattr(mod, n) for n in names), name
+        assert names <= set(getattr(mod, "__all__", names)), name
+    layers = importlib.import_module("repro_torch.models.layers")
+    for private in ("_moe_dispatch_group", "_moe_combine_group",
+                    "_load_balance_loss", "_tuned_moe_dispatch", "_tuned_ssm_chunk"):
+        assert callable(getattr(layers, private)), private

@@ -130,3 +130,56 @@ def test_cost_engine_waits_for_its_port(model):
         ContinuousEngine(tcfg, tp, cost_engine=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(tcfg, tp, cost_engine=object(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Non-dense plans: an SSM stack in the lockstep engine, MoE in the paged one
+# ---------------------------------------------------------------------------
+
+
+def _f32_pair(arch):
+    jcfg, tcfg = jax_config(arch, reduced=True), get_config(arch, reduced=True)
+    tree = JT.init_params(jcfg, 0)
+    jp = jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float32)), tree)
+    return jcfg, tcfg, jp, params_from_jax(tree, tcfg, device="cpu",
+                                           dtype=torch.float32)
+
+
+def test_lockstep_engine_serves_an_ssm_stack():
+    """Reduced mamba2-780m over the dense cache (conv taps and f32 state):
+    ragged prompts (left-padded: the SSD mixer treats pads as zero-input,
+    unit-decay steps) give the reference engine's greedy streams."""
+    jcfg, tcfg, jp, tp = _f32_pair("mamba2-780m")
+    prompts = _prompts((7, 3, 12, 9))
+    j = JServeEngine(jcfg, jp, JServeConfig(max_len=32, n_slots=4)).generate(
+        prompts, max_new_tokens=8)
+    t = ServeEngine(tcfg, tp, ServeConfig(max_len=32, n_slots=4),
+                    device="cpu").generate(prompts, max_new_tokens=8)
+    np.testing.assert_array_equal(t["tokens"], j["tokens"])
+    np.testing.assert_array_equal(t["token_counts"], j["token_counts"])
+    assert t["decode_steps"] == j["decode_steps"]
+
+
+def test_lockstep_engine_refuses_ragged_prompts_with_a_prefix():
+    _, tcfg, _, tp = _f32_pair("paligemma-3b")
+    eng = ServeEngine(tcfg, tp, ServeConfig(max_len=32, n_slots=2), device="cpu")
+    with pytest.raises(ValueError, match="plain decoder stack"):
+        eng.generate(_prompts((5, 3)), max_new_tokens=2)
+
+
+def test_continuous_engine_serves_moe():
+    """Reduced qwen3-moe-30b-a3b over the paged pool: ragged prompts,
+    chunked prefill and preemption give the reference engine's streams
+    and counters (routing with tuning off in both packages)."""
+    jcfg, tcfg, jp, tp = _f32_pair("qwen3-moe-30b-a3b")
+    prompts = _prompts((5, 21, 37, 12, 30))
+    kw = dict(max_len=64, n_slots=3, block_size=8, pool_tokens=48, prefill_chunk=16)
+    jeng = JEngine(jcfg, jp, JConfig(**kw))
+    jeng.run([JRequest(p, max_new_tokens=6) for p in prompts])
+    teng = ContinuousEngine(tcfg, tp, ContinuousConfig(**kw), device="cpu")
+    teng.run([Request(p, max_new_tokens=6) for p in prompts])
+    assert _streams(teng) == _streams(jeng)
+    jm, tm = jeng.metrics(), teng.metrics()
+    assert {k: tm[k] for k in COUNTS} == {k: jm[k] for k in COUNTS}
+    assert tm["lost"] == 0 and tm["finished"] == len(prompts)
+    assert tm["prefill_chunks"] > 0
