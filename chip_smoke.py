@@ -41,7 +41,26 @@ Phases (any failure raises and the script exits non-zero):
    inputs, and a reduced qwen3-4b on the card is held against the same
    model on the CPU (the port's plain path); launches the tuner makes
    inside this window (a prefill shape it has not seen) are counted
-   apart and printed;
+   apart and printed; then, on the same parameters, the admit phase:
+   a ``CostEngine(AnalyticalBackend(lm_device=<this card's spec>))``
+   estimates qwen3-4b ``infer`` (bs 8, seq 2048) and internlm2-1.8b
+   ``train`` (bs 4, seq 2048) by tracing each step on meta tensors: Γ, Φ,
+   energy, the ledger's class sums (which must re-sum to its aggregates),
+   matmul FLOPs within [0.5, 3]x ``model_flops_for_cell``, the roofline
+   report; a repeated query must be a cache hit with no trace, and a trace
+   must launch no kernel and allocate nothing on the card.  Then
+   ``ContinuousEngine`` serves the 16 requests gated by the
+   ``SLOScheduler`` at a memory budget between the estimates of 4 and 5
+   concurrent requests, plus two planted requests that must be refused
+   (one past the context window, one whose per-token SLO fails even
+   alone): 16 finished, ``lost == 0``, ``defer_backoffs > 0``, at most 4
+   concurrent, paged-decode launches ``decode_steps x 36`` and the kernel
+   within 1e-2 of its plain version on the gated pool, throughput beside
+   the ungated run's; injected backend faults step the failover chain
+   down to static degraded mode (at most 2 concurrent while degraded,
+   every request finishes); the training launcher refuses full-width
+   internlm2-1.8b at ``--memory-budget-gb 20`` before drawing a
+   parameter;
 6. layers — the non-dense layer plans (MoE, SSD, cross-attention): every
    registry architecture at ``reduced()`` in f32 (TF32 off, tuning pinned)
    on the card against the CPU, ``forward`` logits and ``prefill`` + one
@@ -106,7 +125,8 @@ Phases (any failure raises and the script exits non-zero):
    (``python -m repro_torch.bench.run``) gives it, seven families;
 11. a ``{"kernels": [...]}`` JSON line (the flash entry with the train
    phase's ``train_*`` numbers, paged decode with the layers phase's
-   ``moe_*`` numbers, SSD with its ``serve_launches``), the card line again, and last
+   ``moe_*`` and the admit phase's ``admit_*`` numbers, SSD with its
+   ``serve_launches``), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it fails
@@ -502,11 +522,17 @@ def serve_phase() -> dict:
           f"(tol {TOL['bfloat16']})")
     if not err <= TOL["bfloat16"]:
         raise AssertionError(f"paged_decode disagrees on served inputs: {err}")
+    ungated = {"streams": {tuple(r.prompt.tolist()): list(r.tokens) for r in engine.finished},
+               "metrics": m, "wall": wall,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
     del engine, last, q, kp, vp, got, want
     decode_breakdown(cfg, params, scfg, prompts)
+    t0 = time.perf_counter()
+    admitted = admit_phase(cfg, params, scfg, prompts, ungated)
+    print(f"admit phase done in {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
-    return {"launches": launches, "max_abs_err": err}
+    return {"launches": launches, "max_abs_err": err, "admit": admitted}
 
 
 def decode_breakdown(cfg, params, scfg, prompts, n_steps: int = 8) -> None:
@@ -567,6 +593,285 @@ def decode_breakdown(cfg, params, scfg, prompts, n_steps: int = 8) -> None:
           f"{lookup_us * cfg.n_layers / 1e3:.3f} ms/step over {cfg.n_layers} layers")
     print(f"decode step ({cfg.name}) top kernels (ms/step): " + "; ".join(
         f"{k[:60]} {t:.3f}" for k, t in top))
+
+
+# ---------------------------------------------------------------------------
+# Admission: the cost engine's LM estimate and SLO serve admission
+# ---------------------------------------------------------------------------
+
+ADMIT_QUERIES = (("qwen3-4b", "infer", 8, 2048), ("internlm2-1.8b", "train", 4, 2048))
+ADMIT_FLOPS_RATIO = (0.5, 3.0)   # ledger matmul flops / model_flops_for_cell
+ADMIT_ENERGY_REL = 1e-9
+ADMIT_DEGRADED_SLOTS = 2
+
+
+def all_kernels() -> dict:
+    from repro_torch.kernels.conv_mm.kernel import conv_mm_cuda
+
+    return {**tuned_kernels(), "conv_mm": conv_mm_cuda}
+
+
+def kernel_counts() -> dict:
+    return {n: (k.launches, getattr(k, "tuner_launches", 0))
+            for n, k in all_kernels().items()}
+
+
+def admit_estimates(engine, backend, spec) -> dict:
+    """Part 1: the two estimates on this card's spec, traced on meta
+    tensors; gates: class sums re-sum to the aggregates, matmul flops
+    within ``ADMIT_FLOPS_RATIO`` of ``model_flops_for_cell``, a repeated
+    query answered from the cache with no trace, and no kernel launch and
+    no allocation on the card during a trace."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.roofline import model_flops_for_cell, roofline_from_cost
+    from repro_torch.engine import CostQuery
+
+    out = {}
+    for arch, stage, bs, seq in ADMIT_QUERIES:
+        q = CostQuery(arch=arch, bs=bs, seq=seq, stage=stage, reduced=False)
+        cfg = get_config(arch)
+        torch.cuda.synchronize()
+        counts, alloc = kernel_counts(), torch.cuda.memory_allocated()
+        est = engine.estimate_one(q)
+        torch.cuda.synchronize()
+        if kernel_counts() != counts or torch.cuda.memory_allocated() != alloc:
+            raise AssertionError(f"admit {arch} {stage}: the trace launched or allocated: "
+                                 f"{counts} -> {kernel_counts()}, {alloc} -> "
+                                 f"{torch.cuda.memory_allocated()} bytes")
+        _, cost, mem = backend.last_trace
+        d = est.detail
+        classes = d["cost_classes"]
+        for key in ("flops", "hbm_bytes"):
+            if sum(c[key] for c in classes.values()) != d[key]:
+                raise AssertionError(f"admit {arch}: {key} class sums do not re-sum")
+        e_dyn = sum(c["energy_j"] for c in classes.values())   # envelope pricing
+        if not abs(e_dyn - (est.energy_j - d["energy_static_j"])) <= ADMIT_ENERGY_REL * e_dyn:
+            raise AssertionError(f"admit {arch}: energy class sums {e_dyn} do not re-sum")
+        kind = "train" if stage == "train" else "prefill"
+        mf = model_flops_for_cell(cfg, ShapeSpec("admit", seq, bs, kind))
+        report = roofline_from_cost(cost, arch=arch, shape=f"{kind}_b{bs}_s{seq}",
+                                    mesh_desc="1", n_devices=1, model_flops_total=mf,
+                                    hw=spec, plan_bytes=est.gamma_mb * 1e6,
+                                    compile_s=d["compile_s"])
+        ratio = classes["matmul"]["flops"] / mf
+        traces = backend.traces
+        hits = engine.hits
+        again = engine.estimate_one(q)
+        print(f"admit estimate {arch} {stage} bs={bs} seq={seq} on {spec.name}: "
+              f"Γ {est.gamma_mb / 1e3:.3f} GB (arg {mem['arg'] / 1e9:.3f}, temp "
+              f"{mem['temp'] / 1e9:.3f}, out {mem['out'] / 1e9:.3f}), Φ {est.phi_ms:.2f} ms, "
+              f"energy {est.energy_j:.3f} J, flops {d['flops']:.4e}, hbm bytes "
+              f"{d['hbm_bytes']:.4e}, dominant {d['dominant']}, {len(cost.ledger)} records, "
+              f"trace {d['compile_s']:.2f} s, useful_ratio {report.useful_ratio:.3f}, "
+              f"matmul flops / model flops {ratio:.3f} (gate {ADMIT_FLOPS_RATIO})")
+        print(f"admit estimate {arch} {stage} classes: " + "; ".join(
+            f"{c} flops {v['flops']:.4e} bytes {v['hbm_bytes']:.4e} energy "
+            f"{v['energy_j']:.4f} J n={v['count']}" for c, v in classes.items()))
+        print(f"admit estimate {arch} {stage} roofline: {report.summary()}")
+        if not ADMIT_FLOPS_RATIO[0] <= ratio <= ADMIT_FLOPS_RATIO[1]:
+            raise AssertionError(f"admit {arch}: matmul flops ratio {ratio}")
+        if backend.traces != traces or engine.hits != hits + 1 or \
+                again.gamma_mb != est.gamma_mb:
+            raise AssertionError(f"admit {arch}: the repeat was not a cache hit "
+                                 f"without a trace")
+        out[(arch, stage)] = est
+    return out
+
+
+def admit_serve(cfg, params, scfg, prompts, ungated, engine, backend) -> dict:
+    """Part 2: ``ContinuousEngine`` gated by the ``SLOScheduler`` at a
+    budget between the estimates of 4 and 5 requests, plus two planted
+    refusals; part 3 (failover) in :func:`admit_failover`."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.engine import CostQuery
+    from repro_torch.kernels.paged_decode import ops
+    from repro_torch.kernels.paged_decode.kernel import paged_decode_cuda
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+    from repro_torch.serve import ContinuousEngine, PlacementRefused, Request
+
+    margin = scfg.safety_margin
+    gamma = {bs: engine.estimate_one(CostQuery(arch=cfg.name, bs=bs, seq=scfg.max_len,
+                                               stage="infer", reduced=False)).gamma_mb
+             for bs in (1, 4, 5)}
+    phi1 = engine.estimate_one(CostQuery(arch=cfg.name, bs=1, seq=scfg.max_len,
+                                         stage="infer", reduced=False)).phi_ms
+    budget = ((1 + margin) * gamma[4] + (1 + margin) * gamma[5]) / 2
+    slo_ms = 0.5 * phi1 / scfg.max_len * (1 + margin)
+    gated = dataclasses.replace(scfg, gamma_budget_mb=budget)
+    head = prompts[0][:scfg.max_len // 2]     # needs 24 tokens more than the window
+    big = Request(head.copy(), max_new_tokens=scfg.max_len - len(head) + 24)
+    slow = Request(prompts[1][:64].copy(), max_new_tokens=32, slo_ms=slo_ms)
+    requests = [Request(p, max_new_tokens=32) for p in prompts]
+    queue = requests[:1] + [big, slow] + requests[1:]
+    print(f"admit serve: Γ(bs 1/4/5, max_len {scfg.max_len}) {gamma[1]:.1f} / "
+          f"{gamma[4]:.1f} / {gamma[5]:.1f} MB, margin {margin}: gamma_budget_mb "
+          f"{budget:.1f}; Φ(bs 1) {phi1:.3f} ms, planted slo_ms {slo_ms:.6f}")
+
+    ce = ContinuousEngine(cfg, params, gated, cost_engine=engine)
+    last = {}
+    launch = ops.paged_decode_cuda
+
+    def keep_last(*args, **kw):
+        last["args"], last["kw"] = args, kw
+        return launch(*args, **kw)
+
+    traces, trace_s = backend.traces, backend.trace_seconds
+    torch.cuda.synchronize()
+    ops.paged_decode_cuda = keep_last
+    paged_decode_cuda.launches = 0
+    most = 0
+    t0 = time.perf_counter()
+    try:
+        for r in queue:
+            ce.submit(r)
+        while not ce.idle:
+            ce.step()
+            most = max(most, ce.n_running)
+        torch.cuda.synchronize()
+    finally:
+        ops.paged_decode_cuda = launch
+    wall = time.perf_counter() - t0
+    launches = paged_decode_cuda.launches
+    m = ce.metrics()
+    refused = {r.rid: str(r.refusal) for r in ce.refused}
+    print(f"admit serve qwen3-4b gated: {m['finished']} finished, {m['refused']} refused, "
+          f"lost={m['lost']}, defer_backoffs={m['defer_backoffs']}, largest concurrent "
+          f"{most}, decode_steps={m['decode_steps']}, paged_decode launches={launches}; "
+          f"pricing: {backend.traces - traces} traces in "
+          f"{backend.trace_seconds - trace_s:.2f} s, engine hits {engine.hits} misses "
+          f"{engine.misses}")
+    for rid, msg in refused.items():
+        print(f"admit serve refusal {rid}: {msg}")
+    if not (m["finished"] == len(requests) and m["lost"] == 0 and m["refused"] == 2
+            and {big.rid, slow.rid} == set(refused)):
+        raise AssertionError(f"admit serve: not 16 finished and the 2 planted refused: {m}")
+    if not ("max_len" in str(big.refusal) and "SLO" in str(slow.refusal)
+            and isinstance(slow.refusal, PlacementRefused)
+            and "cost_classes" in slow.refusal.info):
+        raise AssertionError("admit serve: the planted refusals lack their reasons")
+    if not (m["defer_backoffs"] > 0 and most <= 4):
+        raise AssertionError(f"admit serve: defer_backoffs {m['defer_backoffs']}, "
+                             f"largest concurrent {most}")
+    if not launches == m["decode_steps"] * cfg.n_layers > 0:
+        raise AssertionError(f"admit serve: paged_decode launches {launches} != "
+                             f"decode_steps {m['decode_steps']} x {cfg.n_layers}")
+    q, kp, vp, bt, cl = last["args"]
+    got = paged_decode_cuda(q, kp, vp, bt, cl, **last["kw"])
+    want = paged_decode_ref(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and got.shape == q.shape):
+        raise AssertionError("admit serve: paged_decode output not finite")
+    err = float((got.float() - want.float()).abs().max())
+    same = sum(ungated["streams"].get(tuple(r.prompt.tolist())) == list(r.tokens)
+               for r in requests)
+    um, uw = ungated["metrics"], ungated["wall"]
+    print(f"admit serve paged_decode on the gated pool (last step, cache_len="
+          f"{cl.tolist()}): max_abs_err={err:.3e} (tol {TOL['bfloat16']})")
+    print(f"admit serve gated / ungated: {m['tokens_out'] / wall:.1f} / "
+          f"{um['tokens_out'] / uw:.1f} tokens/s; TTFT p50 {m['ttft_p50_ms']:.1f} / "
+          f"{um['ttft_p50_ms']:.1f} ms; TPOT p50 {m['tpot_p50_ms']:.2f} / "
+          f"{um['tpot_p50_ms']:.2f} ms; {same}/{len(requests)} streams equal the "
+          f"ungated run's (bf16, other batch compositions: reported)")
+    if not err <= TOL["bfloat16"]:
+        raise AssertionError(f"admit serve: paged_decode disagrees: {err}")
+    return {"launches": launches, "max_abs_err": err}
+
+
+def admit_failover(cfg, params, scfg, prompts, engine) -> None:
+    """Part 3: ``"backend"`` faults poison every estimate of the first six
+    steps; the failover chain steps down to static degraded mode, at most
+    ``ADMIT_DEGRADED_SLOTS`` requests run while it is degraded, every
+    request finishes."""
+    import dataclasses
+
+    from repro_torch.serve import ContinuousEngine, Fault, FaultPlan, Request
+
+    faults = FaultPlan([Fault(step=s, kind="backend", count=1000) for s in range(1, 7)])
+    fcfg = dataclasses.replace(scfg, gamma_budget_mb=1e12, degraded_slots=ADMIT_DEGRADED_SLOTS,
+                               health_fail_threshold=2, health_probe_every=4)
+    ce = ContinuousEngine(cfg, params, fcfg, cost_engine=engine, faults=faults)
+    requests = [Request(p[:256].copy(), max_new_tokens=16) for p in prompts[:8]]
+    for r in requests:
+        ce.submit(r)
+    most_degraded, was_degraded = 0, False
+    while not ce.idle:
+        ce.step()
+        if ce.failover.degraded:
+            was_degraded = True
+            most_degraded = max(most_degraded, ce.n_running)
+    m = ce.metrics()
+    print(f"admit failover: {m['finished']}/{len(requests)} finished, lost={m['lost']}, "
+          f"degraded_steps={m['degraded_steps']}, failovers={m['failovers']}, largest "
+          f"concurrent while degraded {most_degraded} (static slots "
+          f"{ADMIT_DEGRADED_SLOTS}), backend faults fired {faults.fired['backend']}; "
+          f"health {m['health']}")
+    if not (was_degraded and m["finished"] == len(requests) and m["lost"] == 0
+            and most_degraded <= ADMIT_DEGRADED_SLOTS):
+        raise AssertionError(f"admit failover: {m}")
+
+
+def admit_launcher() -> None:
+    """Part 4: the launcher refuses full-width internlm2-1.8b at 20 GB on
+    the h100 spec before drawing a parameter (the state alone is 22.68 GB)."""
+    import torch
+
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import PlacementRefused
+
+    draws = []
+    init = T.init_params
+
+    def counted(*a, **kw):
+        draws.append(1)
+        return init(*a, **kw)
+
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    T.init_params = counted
+    t0 = time.perf_counter()
+    try:
+        launch.main(["--arch", "internlm2-1.8b", "--steps", "1", "--batch", "4",
+                     "--seq", "2048", "--device", "h100", "--memory-budget-gb", "20"])
+    except PlacementRefused as e:
+        refusal = e
+    else:
+        raise AssertionError("the launcher admitted internlm2-1.8b at 20 GB")
+    finally:
+        T.init_params = init
+    secs = time.perf_counter() - t0
+    print(f"admit launcher internlm2-1.8b B=4 S=2048 --device h100 --memory-budget-gb "
+          f"20: refused in {secs:.2f} s, predicted {refusal.info['predicted_gb']:.3f} GB "
+          f"(effective {refusal.info['gamma_eff'] / 1e3:.3f} GB), parameters drawn "
+          f"{len(draws)}; {str(refusal)[:160]}")
+    if draws or torch.cuda.memory_allocated() != alloc:
+        raise AssertionError("the launcher drew parameters before refusing")
+
+
+def admit_phase(cfg, params, scfg, prompts, ungated) -> dict:
+    """Admission on the card (see the module docstring, phase 5b)."""
+    from repro_torch.engine import AnalyticalBackend, CostEngine, from_torch_device
+
+    spec = from_torch_device()
+    backend = AnalyticalBackend(lm_device=spec)
+    cache = ROOT / "build" / "repro_torch" / "admit_estimates.json"
+    cache.unlink(missing_ok=True)
+    engine = CostEngine(backend, cache=str(cache), device=spec)
+    estimates = admit_estimates(engine, backend, spec)
+    served = admit_serve(cfg, params, scfg, prompts, ungated, engine, backend)
+    admit_failover(cfg, params, scfg, prompts, engine)
+    admit_launcher()
+    est = estimates[("qwen3-4b", "infer")]
+    print(f"admit qwen3-4b infer bs=8 seq=2048: Γ {est.gamma_mb / 1e3:.3f} GB against "
+          f"the ungated serve's max_memory_allocated "
+          f"{ungated['max_memory_allocated'] / 1e9:.3f} GB (paged pool, chunked prefill)")
+    return {**served, "train_estimate": estimates[("internlm2-1.8b", "train")]}
 
 
 def reference_phase() -> None:
@@ -1340,7 +1645,8 @@ def train_full() -> dict:
         raise AssertionError("the chunked loss disagrees with the unchunked one")
     train_step_breakdown(trainer, state, batch, steady * 1e3)
     train_reference_seq(trainer, state, mem["base"])
-    return {"steps": len(hist), "flash_launches": launches}
+    return {"steps": len(hist), "flash_launches": launches, "peak": peak,
+            "step_ms": steady * 1e3}
 
 
 def train_reference_seq(trainer, state, base: int) -> None:
@@ -2593,6 +2899,10 @@ def main() -> int:
     reference_phase()
     layered = layers_phase()
     trained = train_phase()
+    est = served["admit"]["train_estimate"]
+    print(f"admit internlm2-1.8b train bs=4 seq=2048: Γ {est.gamma_mb / 1e3:.3f} GB, Φ "
+          f"{est.phi_ms:.2f} ms against the train phase's peak {trained['peak'] / 1e9:.3f} "
+          f"GB and median step {trained['step_ms']:.1f} ms")
     cnn = cnn_phase()
     engine = engine_phase(cnn)
     bench = bench_phase(cnn)
@@ -2607,6 +2917,8 @@ def main() -> int:
         **timing,
         "moe_launches": layered["moe_launches"],
         "moe_max_abs_err": layered["moe_max_abs_err"],
+        "admit_launches": served["admit"]["launches"],
+        "admit_max_abs_err": served["admit"]["max_abs_err"],
     }, {
         "name": "conv_mm",
         "route": "cuda",

@@ -45,6 +45,29 @@ device (the first call, the warm-up steps, the timed steps and the memory
 step; ``2`` with ``run=False``).  Inference-stage attributes γ/φ (paper
 §6.4) are profiled the same way over a forward pass without autograd;
 there the CPU stand-in for γ is parameters + batch + logits.
+
+**Γ of a traced step** (:func:`meta_memory`, the counterpart of the
+reference's ``memory_analysis_bytes`` for the cost engine's LM estimates):
+the same written definitions, evaluated on **meta tensors**, so that
+nothing is allocated and nothing launched:
+
+* training: ``arg`` (parameters, optimizer slots, batch) + ``temp``
+  (one gradient per parameter, plus every tensor autograd saves for the
+  backward pass, once per storage, storages in ``arg`` not again) +
+  ``out`` (the loss).  Under remat (``torch.utils.checkpoint``) only a
+  checkpoint's inputs are saved, as on the card;
+* inference (prefill): ``arg`` (parameters, batch) + ``out`` (the logits
+  and the dense cache) + ``temp``, the largest single intermediate an
+  op writes during the forward (the least working set an eager forward
+  holds beside its outputs).
+
+Every meta storage reports ``data_ptr() == 0``, so meta storages are told
+apart by their storage object (``untyped_storage()._cdata``), and the
+storages of the saved tensors are held until the step ends so that no
+key is reused.  XLA's buffer plan (the reference's Γ) packs temporaries
+by liveness and counts its generated code; this definition counts what
+autograd keeps and the one largest temporary, so the two differ by
+design, as the measured Γ on the card differs from both.
 """
 
 from __future__ import annotations
@@ -54,6 +77,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.convert import cnn_params_from_numpy, tree_leaves, tree_map
@@ -66,6 +90,7 @@ __all__ = [
     "make_infer_fn",
     "profile_training",
     "profile_inference",
+    "meta_memory",
 ]
 
 
@@ -153,7 +178,10 @@ def _nbytes(tensors) -> int:
 
 
 def _storage_key(t: torch.Tensor):
-    return t.untyped_storage().data_ptr()
+    """One key per storage: its address, or on the meta device (where
+    every storage reports address 0) the storage object itself."""
+    st = t.untyped_storage()
+    return st._cdata if t.device.type == "meta" else st.data_ptr()
 
 
 def _memory_step(fn, args, arg_tensors, grad_bytes: int, dev: torch.device):
@@ -169,10 +197,12 @@ def _memory_step(fn, args, arg_tensors, grad_bytes: int, dev: torch.device):
         peak = torch.cuda.max_memory_allocated(dev) - base
     else:
         saved: dict[int, int] = {}
+        held = []                       # no storage key is reused meanwhile
 
         def pack(t):
             st = t.untyped_storage()
-            saved[st.data_ptr()] = st.nbytes()
+            saved[_storage_key(t)] = st.nbytes()
+            held.append(st)
             return t
 
         with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
@@ -182,6 +212,42 @@ def _memory_step(fn, args, arg_tensors, grad_bytes: int, dev: torch.device):
     if dev.type == "cuda":          # the peak held the outputs too
         return max(peak - out_bytes, 0), out_bytes
     return peak, out_bytes
+
+
+class _LargestOutput(TorchDispatchMode):
+    """Bytes of the largest tensor any non-view op writes."""
+
+    def __init__(self):
+        super().__init__()
+        self.largest = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not getattr(func, "is_view", False):
+            for t in tree_leaves([out]):
+                if isinstance(t, torch.Tensor):
+                    self.largest = max(self.largest, t.numel() * t.element_size())
+        return out
+
+
+def meta_memory(fn, args, arg_tensors, *, grad_bytes: int = 0,
+                train: bool = True) -> dict[str, float]:
+    """Γ of one step, ``fn(*args)``, by the module docstring's definition
+    of a traced step: ``{"arg", "temp", "out"}`` bytes.  Run it on meta
+    tensors (it works on CPU tensors too, by the same definition; the
+    training branch is then the CPU stand-in of :func:`profile_training`).
+    ``arg_tensors`` are the resident tensors, ``grad_bytes`` the
+    gradients' bytes (training)."""
+    arg = _nbytes(arg_tensors)
+    if train:
+        temp, out = _memory_step(fn, args, arg_tensors, grad_bytes,
+                                 torch.device("meta"))
+        return {"arg": float(arg), "temp": float(temp), "out": float(out)}
+    resident = {_storage_key(t) for t in arg_tensors}
+    with _LargestOutput() as largest:
+        outs = [t for t in tree_leaves(fn(*args)) if isinstance(t, torch.Tensor)]
+    out = _nbytes(t for t in outs if _storage_key(t) not in resident)
+    return {"arg": float(arg), "temp": float(largest.largest), "out": float(out)}
 
 
 def _meta_flops(fn, args) -> float | None:

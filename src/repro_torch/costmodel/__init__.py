@@ -1,6 +1,6 @@
-"""Per-op cost record shared by the kernel tiling models (port of
+"""Per-op cost IR shared by every cost producer and consumer (port of
 ``repro/costmodel/``; see ledger.py)."""
 
-from repro_torch.costmodel.ledger import OP_CLASSES, OpCost, classify_op
+from repro_torch.costmodel.ledger import OP_CLASSES, CostLedger, OpCost, classify_op
 
-__all__ = ["OP_CLASSES", "OpCost", "classify_op"]
+__all__ = ["OP_CLASSES", "CostLedger", "OpCost", "classify_op"]

@@ -2,12 +2,13 @@
 
 One batched, cacheable API — ``CostBackend.estimate(queries) ->
 CostEstimate[]`` — over the three cost paths: the fitted perf4sight
-forest, the analytical closed forms, and the ground-truth profiler on the
-card.  Hardware constants live in the device registry
-(:mod:`repro_torch.engine.devices`) and are fitted per device by
-:mod:`repro_torch.engine.calibrate`.  The CNN paths are ported; LM arch
-queries wait for ROADMAP queue 1 items 5b (the cost ledger) and 6
-(``LMForest``).
+forest, the analytical model (closed forms for CNNs, a traced aten-op
+ledger for LMs), and the ground-truth profiler on the card.  Hardware
+constants live in the device registry (:mod:`repro_torch.engine.devices`)
+and are fitted per device by :mod:`repro_torch.engine.calibrate`.  The
+campaign-fitted ``LMForest`` that ``ForestBackend(lm=…)`` reads in the
+reference waits for ROADMAP queue 1 item 6; any fitted LM forest object
+plugs in meanwhile.
 """
 
 from repro_torch.engine.backends import (

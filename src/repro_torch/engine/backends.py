@@ -5,7 +5,8 @@ increasing speed of setup:
 
 * :class:`ProfilerBackend`   — ground truth: run the real step on the card.
 * :class:`AnalyticalBackend` — no fitting, no execution: the Appendix-B
-  closed forms for CNNs, priced by a :class:`DeviceSpec`.
+  closed forms for CNNs, and for LM arch queries a roofline over the
+  aten-op cost ledger of the step traced on meta tensors.
 * :class:`ForestBackend`     — the fitted perf4sight predictor; microseconds
   per query once fitted, fully batched.
 
@@ -14,17 +15,22 @@ convention): each query is answered by the first backend in the chain that
 supports it and succeeds, so a search job transparently degrades from
 "fitted forest" to "analytical" to "measure it" instead of crashing.
 
-The forest, analytical and ensemble paths are numpy only and held exactly
-against the reference, cache salts included.  What the port does not have
-yet: LM arch queries.  The reference's forest answers them with a
-campaign-fitted ``LMForest`` (ROADMAP queue 1 item 6) and its analytical
-backend by compiling the step with ``jax.jit`` and pricing the HLO, which
-in the port needs the aten-op cost ledger of item 5b; the analytical
-backend raises :class:`BackendUnavailable` for them, so an ensemble falls
-through to the next link.
+The forest, CNN analytical and ensemble paths are numpy only and held
+exactly against the reference, cache salts included.  The LM analytical
+path prices the same way as the reference's from its own ledger: the
+reference compiles the step with ``jax.jit`` and parses XLA's HLO, the
+port traces the eager step (``core/hlo_cost.trace_cost``); FLOPs agree,
+bytes are eager's (unfused) and Γ is the written definition of a traced
+step (``core/profiler.meta_memory``).  ``ForestBackend``'s LM branch
+takes any fitted LM forest (``fitted``, ``content_hash()``,
+``predict_queries``, ``default_device``, ``meta``, optional
+``predict_energy``/``energy_fitted``); the campaign-fitted ``LMForest``
+itself waits for ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -37,7 +43,10 @@ from repro_torch.engine.decompose import (
     energy_terms,
     latency_class_columns,
     latency_terms,
+    ledger_latency_columns,
+    lm_roofline_terms,
     memory_terms,
+    price_ledger_energy,
 )
 from repro_torch.engine.devices import DeviceSpec, resolve_device
 from repro_torch.engine.types import (
@@ -55,11 +64,6 @@ __all__ = [
     "EnsembleBackend",
 ]
 
-LM_FOREST_TODO = ("LM arch queries through a campaign-fitted LMForest are not "
-                  "ported yet (ROADMAP.md, Queue 1 item 6: 'campaign/')")
-LM_ANALYTICAL_TODO = ("analytical LM arch queries need the port's cost-ledger "
-                      "producer (ROADMAP.md, Queue 1 item 5b)")
-
 # CNN energy-fit column → ledger op class, for the per-class breakdown the
 # fitted path reports (the columns are already class-labelled).
 _CNN_COL2CLS = {"flops_matmul": "matmul", "hbm_elementwise": "elementwise",
@@ -67,44 +71,54 @@ _CNN_COL2CLS = {"flops_matmul": "matmul", "hbm_elementwise": "elementwise",
 
 
 class ForestBackend:
-    """Batched prediction through fitted :class:`Perf4Sight` models (one per
-    stage) for CNN conv-spec queries.  N queries cost one feature-matrix
-    build + one packed forest traversal per attribute and nothing on the
-    card — the engine's hot path."""
+    """Batched prediction through fitted forests: :class:`Perf4Sight` models
+    (one per stage) for CNN conv-spec queries, and a fitted LM forest
+    (module docstring) for LM arch queries.  N queries cost one
+    feature-matrix build + one packed forest traversal per attribute and
+    nothing on the card — the engine's hot path."""
 
     name = "forest"
 
     def __init__(self, train: Perf4Sight | None = None,
                  infer: Perf4Sight | None = None, lm=None):
-        if lm is not None:
-            raise NotImplementedError(LM_FOREST_TODO)
         self.predictors = {STAGE_TRAIN: train, STAGE_INFER: infer}
+        self.lm = lm
 
     def _predictor(self, stage: str) -> Perf4Sight | None:
         p = self.predictors.get(stage)
         return p if (p is not None and p.fitted) else None
 
+    def _lm_forest(self):
+        lm = self.lm
+        return lm if (lm is not None and getattr(lm, "fitted", False)) else None
+
     def cache_salt(self) -> str:
         """Content hash of the fitted models: a refit predictor invalidates
-        on-disk estimates instead of silently serving stale ones.  The last
-        part is the reference's LM-forest slot, always empty here."""
+        on-disk estimates instead of silently serving stale ones."""
         parts = []
         for stage in (STAGE_TRAIN, STAGE_INFER):
             p = self._predictor(stage)
             parts.append(p.content_hash() if p is not None else "-")
-        parts.append("-")
+        lm = self._lm_forest()
+        parts.append(lm.content_hash() if lm is not None else "-")
         return f"{self.name}:" + ":".join(parts)
 
     def supports(self, query: CostQuery) -> bool:
-        return query.spec is not None and self._predictor(query.stage) is not None
+        if query.spec is not None:
+            return self._predictor(query.stage) is not None
+        return query.arch is not None and self._lm_forest() is not None
 
     def estimate(self, queries: list[CostQuery]) -> list[CostEstimate]:
         results: list[CostEstimate | None] = [None] * len(queries)
         by_stage: dict[str, list[int]] = {}
+        lm_idx: list[int] = []
         for i, q in enumerate(queries):
             if not self.supports(q):
                 raise BackendUnavailable(f"forest backend cannot answer {q}")
-            by_stage.setdefault(q.stage, []).append(i)
+            if q.spec is not None:
+                by_stage.setdefault(q.stage, []).append(i)
+            else:
+                lm_idx.append(i)
         for stage, idx in by_stage.items():
             predictor = self._predictor(stage)
             g, p = predictor.predict_batch(
@@ -112,20 +126,57 @@ class ForestBackend:
             for j, i in enumerate(idx):
                 results[i] = CostEstimate(
                     gamma_mb=float(g[j]), phi_ms=float(p[j]), source=self.name)
+        if lm_idx:
+            lm = self._lm_forest()
+            lm_queries = [queries[i] for i in lm_idx]
+            g, p = lm.predict_queries(lm_queries)
+            # Energy is an optional forest attribute (forests fitted before
+            # the energy column fit none) — getattr, as the reference reads it.
+            e = None
+            predict_energy = getattr(lm, "predict_energy", None)
+            if callable(predict_energy) and getattr(lm, "energy_fitted", False):
+                e = predict_energy(lm_queries)
+            detail = {"lm": True, "device": lm.default_device.name,
+                      "plan_hash": lm.meta.get("plan_hash")}
+            for j, i in enumerate(lm_idx):
+                results[i] = CostEstimate(
+                    gamma_mb=float(g[j]), phi_ms=float(p[j]),
+                    energy_j=float(e[j]) if e is not None else 0.0,
+                    source=self.name, detail=dict(detail))
         return results
 
 
 class AnalyticalBackend:
-    """No-fit estimates for CNN conv-spec queries, from the Appendix-B
-    closed forms: Γ from the algorithm-independent tensor allocations, Φ
-    from a roofline over the im2col op count and allocation traffic.
+    """No-fit estimates.
+
+    CNN conv-spec queries use the Appendix-B closed forms directly: Γ from
+    the algorithm-independent tensor allocations, Φ from a roofline over the
+    im2col op count and allocation traffic.  LM arch queries trace the real
+    step on meta tensors (no allocation, no launch) and price its aten-op
+    cost ledger through the roofline terms — the same machinery as
+    ``core/roofline.py``:
+
+    * ``stage="infer"``: ``transformer.prefill`` over ``max_len = seq +
+      n_prefix``; ``stage="train"``: ``loss_fn``, the backward (remat
+      recompute included) and ``apply_updates`` (AdamW, f32 ``m``/``v``),
+      as the port's ``Trainer`` runs a step;
+    * Γ is the traced step's (``core/profiler.meta_memory``) rounded by
+      the device's allocation granularity; Φ the class-wise fitted
+      ``lm_latency`` constants when the device has them, else the roofline
+      envelope; energy the fitted ``lm_energy`` constants, else the idle
+      term plus the ledger's per-op dynamic joules;
+    * the trace runs inside ``kernels.autotune.untimed``: a tuning lookup
+      for an unseen shape takes the model-ranked config, so an estimate
+      times no kernel on the card;
+    * ``_compiled_cache`` answers a repeated (arch, stage, bs, seq,
+      reduced, device) with no new trace; ``traces`` and
+      ``trace_seconds`` count the traces, and ``last_trace`` keeps the
+      newest one's (query, ``HloCost``, Γ terms) for reports.
 
     Hardware constants come from :class:`~repro_torch.engine.devices.DeviceSpec`
-    (``device``) — registry guesses by default, per-device fitted constants
-    after :func:`repro_torch.engine.calibrate.calibrate`.  ``lm_device`` and
-    ``reduced`` configure the reference's LM path; the port keeps them in
-    the cache salt, so salts agree with the reference's, and answers no
-    arch query (module docstring).
+    (``device`` for the CNN path, ``lm_device`` for the LM path) — registry
+    guesses by default, per-device fitted constants after
+    :func:`repro_torch.engine.calibrate.calibrate`.
     """
 
     name = "analytical"
@@ -139,6 +190,10 @@ class AnalyticalBackend:
         self.lm_device = resolve_device(lm_device, default="tpu_v5e")
         self.reduced = reduced
         self.bytes_per_el = bytes_per_el
+        self._compiled_cache: dict[tuple, CostEstimate] = {}
+        self.traces = 0
+        self.trace_seconds = 0.0
+        self.last_trace = None
         # infer-stage heuristic indices; the train stage goes through the
         # shared engine/decompose.py terms instead
         self._i_alloc = FEATURE_NAMES.index("mem_alloc_total")
@@ -155,14 +210,19 @@ class AnalyticalBackend:
         return query.spec is not None or query.arch is not None
 
     def estimate(self, queries: list[CostQuery]) -> list[CostEstimate]:
-        if any(q.spec is None and q.arch is not None for q in queries):
-            raise BackendUnavailable(LM_ANALYTICAL_TODO)
-        if any(q.spec is None for q in queries):
+        results: list[CostEstimate | None] = [None] * len(queries)
+        spec_idx = [i for i, q in enumerate(queries) if q.spec is not None]
+        arch_idx = [i for i, q in enumerate(queries)
+                    if q.spec is None and q.arch is not None]
+        if len(spec_idx) + len(arch_idx) != len(queries):
             raise BackendUnavailable("analytical backend cannot answer model-only queries")
-        if not queries:
-            return []
-        X = feature_matrix([(q.spec, q.bs) for q in queries])
-        return [self._estimate_spec(q, X[j]) for j, q in enumerate(queries)]
+        if spec_idx:
+            X = feature_matrix([(queries[i].spec, queries[i].bs) for i in spec_idx])
+            for j, i in enumerate(spec_idx):
+                results[i] = self._estimate_spec(queries[i], X[j])
+        for i in arch_idx:
+            results[i] = self._estimate_arch(queries[i])
+        return results
 
     def _estimate_spec(self, q: CostQuery, feats: np.ndarray) -> CostEstimate:
         # Γ: element count of weights/grads/activation-grads (App. B.2.1).
@@ -250,6 +310,137 @@ class AnalyticalBackend:
         return CostEstimate(
             gamma_mb=float(gamma_mb), phi_ms=float(phi_ms),
             energy_j=energy_j, source=self.name, detail=detail)
+
+
+    # -- LM traced-ledger path -------------------------------------------------
+
+    def _reduced(self, q: CostQuery) -> bool:
+        """Per-query smoke/full choice; the backend flag is only a default."""
+        return self.reduced if q.reduced is None else q.reduced
+
+    def _estimate_arch(self, q: CostQuery) -> CostEstimate:
+        key = (q.arch, q.stage, q.bs, q.seq, self._reduced(q),
+               self.lm_device.fingerprint())
+        if key in self._compiled_cache:
+            return self._compiled_cache[key]
+        try:
+            est = self._trace_arch(q)
+        except BackendUnavailable:
+            raise
+        except Exception as e:  # trace failure → fall through the chain
+            raise BackendUnavailable(
+                f"analytical trace failed for {q.arch}: {e}") from e
+        self._compiled_cache[key] = est
+        return est
+
+    def _trace_step(self, q: CostQuery, cfg):
+        """Trace one step of ``q`` on meta tensors: (HloCost, Γ terms)."""
+        import torch
+
+        from repro_torch.convert import tree_leaves
+        from repro_torch.core.hlo_cost import recording
+        from repro_torch.core.profiler import meta_memory
+        from repro_torch.kernels.autotune import untimed
+        from repro_torch.models import transformer as T
+        from repro_torch.optim.optimizer import (
+            OptimizerConfig,
+            apply_updates,
+            init_opt_state,
+        )
+
+        kind = "train" if q.stage == STAGE_TRAIN else "prefill"
+        model = T.param_specs(cfg)
+        params = dict(model.named_parameters())
+        batch = T.input_specs(cfg, kind, batch_size=q.bs, seq_len=q.seq)["batch"]
+        resident = list(params.values()) + [
+            t for t in tree_leaves(batch) if isinstance(t, torch.Tensor)]
+        if kind == "train":
+            opt_cfg = OptimizerConfig()
+            opt = init_opt_state(params, opt_cfg)
+            resident += tree_leaves(opt)
+            for p in params.values():
+                p.requires_grad_(True)
+                p.grad = torch.zeros_like(p)
+
+            def step(model, batch, opt):       # the Trainer's step
+                for p in params.values():
+                    p.grad.zero_()
+                loss, _ = T.loss_fn(model, batch, cfg)
+                loss.backward()
+                apply_updates(params, {n: p.grad for n, p in params.items()},
+                              opt, opt_cfg)
+                return loss.detach()
+
+            args = (model, batch, opt)
+            grad_bytes = sum(p.numel() * p.element_size() for p in params.values())
+        else:
+            max_len = q.seq + cfg.n_prefix
+
+            def step(model, batch):
+                return T.prefill(model, batch, cfg, max_len=max_len)
+
+            args, grad_bytes = (model, batch), 0
+        with untimed(), recording() as cost:
+            mem = meta_memory(step, args, resident, grad_bytes=grad_bytes,
+                              train=kind == "train")
+        return cost, mem
+
+    def _trace_arch(self, q: CostQuery) -> CostEstimate:
+        from repro_torch.configs.registry import get_config
+
+        dev = self.lm_device
+        reduced = self._reduced(q)
+        cfg = get_config(q.arch, reduced=reduced)
+        t0 = time.perf_counter()
+        cost, mem = self._trace_step(q, cfg)
+        compile_s = time.perf_counter() - t0
+        self.traces += 1
+        self.trace_seconds += compile_s
+        self.last_trace = (q, cost, mem)
+
+        gamma_mb = dev.round_alloc(mem["arg"] + mem["out"] + mem["temp"]) / 1e6
+        # Price per-op dynamic energy into the ledger before taking class
+        # sums: the breakdown every consumer sees (cost_classes) then
+        # carries an energy bucket whose class sums re-sum to the ledger
+        # aggregate — the same parity contract as flops/bytes.
+        eledger = price_ledger_energy(cost.ledger, dev)
+        class_sums = eledger.class_sums()
+        compute_s, memory_s, coll_s = (
+            float(v) for v in lm_roofline_terms(
+                cost.flops, cost.hbm_bytes, cost.collective_bytes, dev))
+        coeffs = dev.class_coeffs.get("lm_latency")
+        if coeffs:
+            phi_ms = float(np.atleast_1d(classwise_seconds(
+                ledger_latency_columns([class_sums]), coeffs))[0]) * 1e3
+        else:
+            phi_ms = dev.combine_terms(compute_s, memory_s, coll_s) * 1e3
+        terms = {"compute": compute_s, "memory": memory_s, "collective": coll_s}
+
+        # Energy: fitted constants when present, envelope pricing otherwise
+        # (static idle term + the per-op dynamic joules above).
+        e_coeffs = dev.class_coeffs.get("lm_energy")
+        static_j = dev.idle_w * (phi_ms / 1e3)
+        if e_coeffs:
+            energy_j = float(np.atleast_1d(classwise_seconds(
+                ledger_latency_columns([class_sums]), e_coeffs))[0])
+            energy_fit = "fitted"
+        else:
+            energy_j = float(static_j + eledger.energy_j)
+            energy_fit = "envelope"
+        return CostEstimate(
+            gamma_mb=float(gamma_mb), phi_ms=float(phi_ms),
+            energy_j=energy_j, source=self.name,
+            detail={"flops": cost.flops, "hbm_bytes": cost.hbm_bytes,
+                    "collective_bytes": cost.collective_bytes,
+                    "cost_classes": class_sums,
+                    "latency_fit": "classwise" if coeffs else "aggregate",
+                    "energy_fit": energy_fit,
+                    "energy_static_j": float(static_j),
+                    "energy_classes": {cls: s["energy_j"]
+                                       for cls, s in class_sums.items()},
+                    "dominant": max(terms, key=terms.get),
+                    "device": dev.name,
+                    "compile_s": compile_s, "reduced": reduced})
 
 
 class ProfilerBackend:

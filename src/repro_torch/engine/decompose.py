@@ -13,18 +13,20 @@ All CNN functions take a ``(N, F)`` Appendix-B feature matrix (rows =
 workloads, columns = ``core.features.FEATURE_NAMES`` order, train stage)
 and return per-row arrays.
 
-Not ported yet: ``price_ledger_energy``, which stamps energy on a
-``CostLedger`` — the port's ``costmodel`` has no ledger until ROADMAP
-queue 1 item 5b.  ``ledger_latency_columns`` is here because it reads
-nothing but per-row class-sums dicts.
+``price_ledger_energy`` stamps each record of a
+:class:`~repro_torch.costmodel.CostLedger` with its dynamic energy, as
+the reference does: the same ledger and device give bit-identical
+``energy_j`` in both packages.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import numpy as np
 
 from repro_torch.core.features import FEATURE_NAMES
-from repro_torch.costmodel import OP_CLASSES
+from repro_torch.costmodel import OP_CLASSES, CostLedger
 
 __all__ = [
     "latency_terms",
@@ -32,6 +34,7 @@ __all__ = [
     "lm_roofline_terms",
     "energy_terms",
     "watts_proxy",
+    "price_ledger_energy",
     "cnn_energy_class_joules",
     "CNN_LATENCY_COLUMNS",
     "latency_class_columns",
@@ -109,6 +112,25 @@ def watts_proxy(flops, phi_s, device) -> np.ndarray:
     return device.idle_w + device.dynamic_w * util
 
 
+def price_ledger_energy(ledger: CostLedger, device) -> CostLedger:
+    """A copy of ``ledger`` with every record's dynamic energy stamped:
+    ``energy_j = flops·(dyn/peak) + hbm·(dyn/bw) + coll·(dyn/ici)``.
+
+    Parity contract (same as flops/bytes): the per-class energy sums of
+    the returned ledger re-sum to its aggregate ``energy_j`` —
+    bit-identically when the envelope constants are powers of two,
+    within 1e-9 relative otherwise."""
+    dyn = device.dynamic_w
+    kf = dyn / device.peak_flops
+    kb = dyn / device.hbm_bw
+    kc = dyn / device.ici_bw
+    return CostLedger([
+        replace(r, energy_j=(r.flops * kf + r.hbm_bytes * kb
+                             + r.collective_bytes * kc))
+        for r in ledger
+    ])
+
+
 def cnn_energy_class_joules(feats: np.ndarray, bytes_per_el: int, device
                             ) -> dict[str, np.ndarray]:
     """Per-class dynamic energy of a CNN training step, keyed by op class
@@ -170,10 +192,12 @@ LM_LATENCY_COLUMNS: tuple[str, ...] = tuple(
 
 def ledger_latency_columns(class_sums) -> dict[str, np.ndarray]:
     """(``LM_LATENCY_COLUMNS`` name → per-row array) from per-row class
-    sums: one ``{op_class: {"flops", "hbm_bytes", "collective_bytes"}}``
-    dict per workload row (a ledger's ``class_sums()``, as campaign records
-    persist it under ``cost_classes``; ``None`` is an empty row)."""
-    sums = [cs or {} for cs in class_sums]
+    sums: one entry per workload row, either a :class:`CostLedger` or a
+    ``{op_class: {"flops", "hbm_bytes", "collective_bytes"}}`` dict (a
+    ledger's ``class_sums()``, as campaign records persist it under
+    ``cost_classes``; ``None`` is an empty row)."""
+    sums = [cs.class_sums() if isinstance(cs, CostLedger) else (cs or {})
+            for cs in class_sums]
     cols: dict[str, np.ndarray] = {}
     for cls in OP_CLASSES:
         cols[f"flops_{cls}"] = np.array(

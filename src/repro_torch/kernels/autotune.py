@@ -75,6 +75,7 @@ __all__ = [
     "set_tuner",
     "tuned_config",
     "timing_launches",
+    "untimed",
 ]
 
 # TPU v5e-class VMEM per core and the reference's headroom fraction.
@@ -286,6 +287,25 @@ def timing_launches() -> bool:
     return _TIMING_DEPTH > 0
 
 
+_UNTIMED_DEPTH = 0
+
+
+@contextlib.contextmanager
+def untimed():
+    """Inside, a tuner lookup times nothing and stores nothing: a memo or
+    cache hit answers as usual, and a miss answers with the model-ranked
+    config of a search that does not measure, neither memoized nor written
+    to the cache (a later lookup outside still searches, and on the card
+    times, that shape).  The cost engine traces steps inside it, so an
+    estimate launches no kernel."""
+    global _UNTIMED_DEPTH
+    _UNTIMED_DEPTH += 1
+    try:
+        yield
+    finally:
+        _UNTIMED_DEPTH -= 1
+
+
 @contextlib.contextmanager
 def _timing():
     global _TIMING_DEPTH
@@ -375,6 +395,9 @@ class KernelTuner:
         if entry is not None:
             self.hits += 1
             return dict(entry["config"])
+        if _UNTIMED_DEPTH:
+            return dict(self._search(get_tiling(kernel), shape,
+                                     measure=False)["config"])
         self.misses += 1
         entry = self._search(get_tiling(kernel), shape)
         self._memo[key] = entry
@@ -388,7 +411,8 @@ class KernelTuner:
         self.tune(kernel, shape)
         return dict(self._memo[self.key(kernel, shape)])
 
-    def _search(self, tiling: TilingModel, shape: dict) -> dict:
+    def _search(self, tiling: TilingModel, shape: dict, *,
+                measure: bool | None = None) -> dict:
         device = self.device
         default = tiling.default(shape)
         cands = list(tiling.candidates(shape))
@@ -413,7 +437,9 @@ class KernelTuner:
 
         best_t, best_cost, best_cfg = scored[0]
         source = "model"
-        if self._should_measure() and tiling.runner is not None:
+        if measure is None:
+            measure = self._should_measure()
+        if measure and tiling.runner is not None:
             best_t, best_cfg = self._time_top_k(tiling, shape, scored)
             best_cost = tiling.cost(shape, best_cfg)
             source = "timed"

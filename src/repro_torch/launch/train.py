@@ -1,19 +1,27 @@
-"""Training launcher (port of ``repro/launch/train.py``).
+"""Training launcher with perf4sight admission control (port of
+``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --reduced --steps 50 --ckpt-dir /tmp/ck --torch-device cpu
 
 The reference's flags and its JSON summary.  ``--torch-device`` (default
 ``cuda``) is the device the port trains on; the reference's ``--device``
-names a ``DeviceSpec`` for admission and keeps that meaning here.  Before
-training the launcher warms the kernel tuning cache for the cell
-(``warm_autotune(stages=("train",))``).
+names a ``DeviceSpec`` for admission and keeps that meaning here.
 
-Admission through the cost engine is not ported yet: ``--device``,
-``--memory-budget-gb``, ``--energy-budget-j`` and ``--estimate-cache``
-wait on ``AnalyticalBackend``'s LM branch (ROADMAP.md, Queue 1, items
-5a/5b), ``--lm-forest`` on ``LMForest`` (item 6), ``--auto-mesh`` and
-``--n-micro`` on the planner (item 7); each raises ``NotImplementedError``.
+Before anything is drawn, the launcher asks the cost engine
+(``repro_torch.engine``) for the training step's footprint — the
+``AnalyticalBackend``'s LM branch: the step (``loss_fn``, backward,
+AdamW) traced on meta tensors, its aten-op ledger priced by the device's
+roofline, no execution — and refuses a job over ``--memory-budget-gb`` or
+``--energy-budget-j`` (inflated by ``--admission-margin``), or over the
+``--device``'s capacity, with :class:`PlacementRefused` (the paper's §6.4
+safety property).  Estimates are cached on disk (``--estimate-cache``), so
+re-launching the same cell readmits with no new trace.  Then it warms the
+kernel tuning cache for the cell (``warm_autotune(stages=("train",))``).
+
+``--lm-forest`` waits on ``LMForest`` (ROADMAP.md, Queue 1, item 6),
+``--auto-mesh`` and ``--n-micro`` on the planner (item 7); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,18 +33,12 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.models.transformer import warm_autotune
 from repro_torch.optim.optimizer import OptimizerConfig
+from repro_torch.serve.scheduler import PlacementRefused
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 __all__ = ["main"]
 
-_ANALYTICAL = ("admission through the cost engine's LM branch "
-               "(AnalyticalBackend, cost ledger) is not ported yet "
-               "(ROADMAP.md, Queue 1, items 5a/5b)")
 _WAITS_ON = {
-    "device": _ANALYTICAL,
-    "memory_budget_gb": _ANALYTICAL,
-    "energy_budget_j": _ANALYTICAL,
-    "estimate_cache": _ANALYTICAL,
     "lm_forest": "LMForest (campaign/) is not ported yet (ROADMAP.md, Queue 1, item 6)",
     "auto_mesh": "the auto-sharding planner is not ported yet (ROADMAP.md, Queue 1, item 7)",
     "n_micro": "the auto-sharding planner is not ported yet (ROADMAP.md, Queue 1, item 7)",
@@ -58,17 +60,23 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--torch-device", default="cuda",
                     help="where the port trains: cuda (default) or cpu")
     ap.add_argument("--device", default=None,
-                    help="device registry name or calibrated DeviceSpec for "
-                         "admission (not ported yet: items 5a/5b)")
+                    help="device registry name (host_cpu, tx2_like, tpu_v5e, "
+                         "h100) or path to a calibrated DeviceSpec (.json/.npz) "
+                         "— sets the admission roofline constants and, absent "
+                         "--memory-budget-gb, the memory capacity budget")
     ap.add_argument("--memory-budget-gb", type=float, default=None,
-                    help="admission memory budget (not ported yet: items 5a/5b)")
+                    help="admission gate: refuse if predicted memory (inflated "
+                         "by --admission-margin) exceeds this; defaults to "
+                         "the --device capacity when a device is given")
     ap.add_argument("--energy-budget-j", type=float, default=None,
-                    help="admission energy budget (not ported yet: items 5a/5b)")
+                    help="admission gate: refuse if the predicted step "
+                         "energy (inflated by --admission-margin) exceeds "
+                         "this many joules")
     ap.add_argument("--admission-margin", type=float, default=0.1,
-                    help="safety margin on the predicted footprint; read only "
-                         "with an admission budget")
+                    help="safety margin applied to the predicted footprint "
+                         "before comparing to the budget (0 = exact)")
     ap.add_argument("--estimate-cache", default=None,
-                    help="the engine's estimate cache (not ported yet: items 5a/5b)")
+                    help="JSON path for the engine's on-disk estimate cache")
     ap.add_argument("--lm-forest", default=None,
                     help="campaign-fitted LM forest (not ported yet: item 6)")
     ap.add_argument("--auto-mesh", type=int, default=None, metavar="N",
@@ -76,6 +84,46 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-micro", type=int, default=None,
                     help="the planner's microbatches (not ported yet: item 7)")
     return ap
+
+
+def _admission(args):
+    """The admission callable the ``Trainer`` asks before it builds the
+    step, or None when no admission flag is given.  A refusal raises
+    :class:`PlacementRefused` (a ``RuntimeError``, "admission denied")."""
+    if (args.memory_budget_gb is None and args.device is None
+            and args.energy_budget_j is None):
+        return None
+    from repro_torch.engine import (
+        AnalyticalBackend,
+        CostEngine,
+        CostQuery,
+        EnsembleBackend,
+        resolve_device,
+    )
+
+    device = resolve_device(args.device) if args.device else None
+    engine = CostEngine(
+        EnsembleBackend([AnalyticalBackend(reduced=args.reduced, lm_device=device)]),
+        cache=args.estimate_cache, device=device)
+
+    def admission(cfg, shape):
+        ok, info = engine.admit(
+            CostQuery(arch=args.arch, bs=shape.global_batch, seq=shape.seq_len,
+                      stage="train", reduced=args.reduced),
+            gamma_budget_mb=(args.memory_budget_gb * 1e3
+                             if args.memory_budget_gb is not None else None),
+            energy_budget_j=args.energy_budget_j,
+            safety_margin=args.admission_margin,
+        )
+        info["predicted_gb"] = info["gamma_mb"] / 1e3
+        info["predicted_energy_j"] = info["energy_j"]
+        if device is not None:
+            info["device"] = device.name
+        if not ok:
+            raise PlacementRefused(f"admission denied: {info}", info)
+        return ok, info
+
+    return admission
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -90,7 +138,10 @@ def main(argv: list[str] | None = None) -> dict:
                           total_steps=max(args.steps, 100))
     tcfg = TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                          grad_compression=args.grad_compression)
-    trainer = Trainer(cfg, shape, opt, tcfg, device=args.torch_device)
+    # admission runs in the Trainer's constructor: a refusal raises before
+    # any parameter is drawn
+    trainer = Trainer(cfg, shape, opt, tcfg, admission=_admission(args),
+                      device=args.torch_device)
 
     # Pre-tune kernel block sizes for this cell (a meta-device trace): the
     # step then reads every block size from the device-keyed tuning cache.

@@ -5,7 +5,10 @@ Slots join and leave the running batch every step:
 
 * arrivals queue in ``submit``; the engine itself refuses a request that
   exceeds the context window or could never fit the pool, and a bounded
-  queue (``max_queue``) refuses overflow at submit;
+  queue (``max_queue``) refuses overflow at submit; with a ``cost_engine``
+  the :class:`~repro_torch.serve.scheduler.SLOScheduler` prices each
+  admission (``ADMIT``, ``DEFER`` with exponential backoff, or ``REFUSE``
+  with a :class:`PlacementRefused` on the request);
 * admitted requests prefill **individually** into a free slot (B=1 at a
   power-of-two bucketed length, left-padded) while other slots keep
   decoding;
@@ -23,9 +26,12 @@ running request is evicted when the pool cannot supply a growing one,
 keeps its generated tokens, re-queues at the head and resumes by
 re-prefilling prompt + generated tokens), **deadlines + watchdog**
 (``Request.deadline_ms`` and ``watchdog_ms`` expire queued and running
-requests into the terminal ``EXPIRED`` state) and a seeded
-:class:`~repro_torch.serve.faults.FaultPlan` that injects allocation
-failures and slow steps.
+requests into the terminal ``EXPIRED`` state), **backend failover**
+(scheduler backend crashes step a
+:class:`~repro_torch.engine.engine.HealthState` down the chain into static
+degraded mode, :class:`~repro_torch.serve.health.FailoverChain`) and a
+seeded :class:`~repro_torch.serve.faults.FaultPlan` that injects
+allocation failures, backend exceptions and slow steps.
 
 Every decode step runs all decodable slots through
 ``transformer.decode_step`` over the pool, whose attention goes through
@@ -34,16 +40,17 @@ temperature 0, else ``torch.multinomial`` driven by a ``torch.Generator``
 seeded from ``ContinuousConfig.seed`` (a different stream from the
 reference's ``jax.random``, so only greedy runs match it token for token).
 
-Not in this slice: admission pricing through a cost engine
-(``SLOScheduler``, backend failover, degraded mode and the config fields
-that drive them) — passing ``cost_engine`` raises ``NotImplementedError``.
+Two devices, two meanings: the constructor's ``device`` is the torch
+device the engine serves on; the cost model's device is the
+``DeviceSpec`` the cost engine carries (``CostEngine(device=…)``, or its
+backend's ``lm_device``).
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -51,14 +58,17 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.serve.health import FailoverChain
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.request import Request, RequestState
-from repro_torch.serve.scheduler import PlacementRefused
+from repro_torch.serve.scheduler import (
+    Decision,
+    PlacementRefused,
+    ServeSLO,
+    SLOScheduler,
+)
 
 __all__ = ["ContinuousConfig", "ContinuousEngine"]
-
-COST_ENGINE_TODO = ("admission through a cost engine is not ported yet "
-                    "(ROADMAP.md, Queue 1: 'Cost engine and serve admission')")
 
 
 def _next_pow2(n: int) -> int:
@@ -79,16 +89,23 @@ class ContinuousConfig:
     pool_tokens: int | None = None    # None → n_slots·max_len / 2 budget
     prefill_chunk: int | None = None  # chunked prefill: max tokens prefilled
     #                                   per engine step (None = whole prompt)
+    gamma_budget_mb: float | None = None
+    energy_budget_j: float | None = None   # per-step power/thermal envelope
+    safety_margin: float = 0.1
+    slo: ServeSLO = field(default_factory=ServeSLO)
+    # --- fault tolerance ---
     max_queue: int | None = None      # bounded wait queue; None = unbounded
     watchdog_ms: float | None = None  # engine-wide TTL; None = off
+    defer_backoff_cap: int = 8        # max steps between DEFER retries
+    degraded_slots: int | None = None  # static budget; None → n_slots // 2
+    health_fail_threshold: int = 3    # consecutive crashes per failover step
+    health_probe_every: int = 8       # estimate calls between recovery probes
 
 
 class ContinuousEngine:
     def __init__(self, cfg: ArchConfig, params,
                  scfg: ContinuousConfig | None = None, *,
                  cost_engine=None, faults=None, clock=None, device="cuda"):
-        if cost_engine is not None:
-            raise NotImplementedError(COST_ENGINE_TODO)
         self.device = resolve_device(device)
         param_device = params.embed.device
         if param_device.type != self.device.type:
@@ -104,6 +121,20 @@ class ContinuousEngine:
             cfg, n_slots=scfg.n_slots, max_len=scfg.max_len,
             block_size=scfg.block_size, pool_tokens=scfg.pool_tokens,
             faults=faults, device=self.device)
+        self.scheduler = None
+        self.failover = None
+        if cost_engine is not None:
+            self.failover = FailoverChain(
+                cost_engine, fail_threshold=scfg.health_fail_threshold,
+                probe_every=scfg.health_probe_every, faults=faults)
+            self.scheduler = SLOScheduler(
+                cfg, cost_engine,
+                max_len=scfg.max_len, n_slots=scfg.n_slots,
+                gamma_budget_mb=scfg.gamma_budget_mb,
+                energy_budget_j=scfg.energy_budget_j,
+                safety_margin=scfg.safety_margin, slo=scfg.slo,
+                failover=self.failover,
+                degraded_slots=scfg.degraded_slots)
 
         self.queue: deque[Request] = deque()
         self.slots: list[Request | None] = [None] * scfg.n_slots
@@ -132,7 +163,10 @@ class ContinuousEngine:
             "expired_queued": 0,     # deadline/watchdog sheds from the queue
             "expired_running": 0,    # watchdog kills of running requests
             "shed_backpressure": 0,  # bounded-queue refusals at submit
+            "defer_backoffs": 0,     # DEFER decisions (head now backs off)
             "alloc_denied": 0,       # pool alloc failures (real or injected)
+            "failovers": 0,          # health step-downs (mirror of health)
+            "degraded_steps": 0,     # steps taken in static degraded mode
             "prefill_chunks": 0,     # chunked-prefill chunks processed
         }
         self._gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
@@ -256,6 +290,8 @@ class ContinuousEngine:
     def _admissions(self) -> None:
         while self.queue and None in self.slots:
             req = self.queue[0]
+            if req.retry_at_step > self._step:
+                break        # DEFER backoff: FIFO head holds the line
             if req.state is not RequestState.PREEMPTED:
                 need = req.prompt_len + req.max_new_tokens
                 if need > self.scfg.max_len:
@@ -272,6 +308,24 @@ class ContinuousEngine:
                         {"need_blocks": need_blocks,
                          "pool_blocks": self.kv.usable_blocks})
                     continue
+                if self.scheduler is not None:
+                    decision, info = self.scheduler.admit(
+                        req, n_running=self.n_running)
+                    if decision is Decision.REFUSE:
+                        self.queue.popleft()
+                        req.state = RequestState.REFUSED
+                        req.refusal = self.scheduler.refusal(req, info)
+                        self.refused.append(req)
+                        continue
+                    if decision is Decision.DEFER:
+                        # exponential backoff: the same head is not
+                        # re-priced every step while occupancy drains
+                        req.defer_retries += 1
+                        req.retry_at_step = self._step + min(
+                            1 << (req.defer_retries - 1),
+                            self.scfg.defer_backoff_cap)
+                        self.counters["defer_backoffs"] += 1
+                        break
             # incremental allocation: only what the prefill itself needs
             # (+ the first decode write)
             total = req.prompt_len + req.n_generated
@@ -479,7 +533,7 @@ class ContinuousEngine:
         """One engine iteration: expire stale work, admit+prefill into
         free slots, advance chunked prefills, then one ragged decode step
         for every decodable slot.  Injected faults (allocation denial,
-        slow steps) are handled inside the call."""
+        backend exceptions, slow steps) are handled inside the call."""
         self._step += 1
         if self.faults is not None:
             self.faults.begin_step(self._step)
@@ -497,6 +551,10 @@ class ContinuousEngine:
                                               self._stall_run)
         else:
             self._stall_run = 0
+        if self.failover is not None:
+            self.counters["failovers"] = self.failover.health.failovers
+            if self.failover.degraded:
+                self.counters["degraded_steps"] += 1
 
     def run(self, requests: list[Request] | None = None, *,
             max_steps: int = 100_000) -> list[Request]:
@@ -539,6 +597,8 @@ class ContinuousEngine:
             "kv_touched_bytes": self.kv_touched_bytes,
             **self.counters,
         }
+        if self.failover is not None:
+            out["health"] = self.failover.metrics()
         if self.faults is not None:
             out["faults"] = self.faults.summary()
         return out

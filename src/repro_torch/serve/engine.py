@@ -9,9 +9,17 @@ offset; a VLM's patch prefix refuses them, as in the reference, and the
 cache's fill counts the prefix (``prefill``'s ``cache_len``).  Sampling is greedy at temperature 0, else ``torch.multinomial``
 driven by a ``torch.Generator`` seeded from ``ServeConfig.seed``.
 
-Not in this slice: placement admission through the cost engine
-(``ServeConfig.device`` / ``gamma_budget_mb`` in the reference) — passing
-``cost_engine`` raises ``NotImplementedError``.
+Placement runs through the same cost-engine admission gate as the
+training launcher (paper §6.4 safety property): configure
+``ServeConfig.device`` (a device-registry name, a persisted spec or a
+``DeviceSpec``) or ``gamma_budget_mb``, or pass a ``cost_engine``, and the
+engine predicts the serving footprint (a prefill of ``n_slots`` ×
+``max_len``) before it allocates a cache, refusing placements over
+budget with :class:`PlacementRefused`.
+
+Two devices, two names: ``ServeConfig.device`` is the cost model's
+``DeviceSpec``, as in the reference; the torch device the engine serves on
+is the constructor's ``device`` argument (default ``"cuda"``).
 """
 
 from __future__ import annotations
@@ -24,7 +32,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.serve.continuous import COST_ENGINE_TODO
 from repro_torch.serve.scheduler import PlacementRefused
 
 __all__ = ["ServeConfig", "ServeEngine", "PlacementRefused", "pad_ragged"]
@@ -37,6 +44,10 @@ class ServeConfig:
     temperature: float = 0.0     # 0 = greedy
     eos_id: int = 1
     seed: int = 0
+    # placement admission (off unless a device or budget is configured)
+    device: "str | object | None" = None   # DeviceSpec: registry name / spec / path
+    gamma_budget_mb: float | None = None   # None + device → device capacity
+    admission_margin: float = 0.1
 
 
 def pad_ragged(prompts) -> tuple[np.ndarray, np.ndarray]:
@@ -60,8 +71,6 @@ def pad_ragged(prompts) -> tuple[np.ndarray, np.ndarray]:
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig | None = None,
                  cost_engine=None, *, device="cuda"):
-        if cost_engine is not None:
-            raise NotImplementedError(COST_ENGINE_TODO)
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params live on {params.embed.device}, engine "
@@ -69,8 +78,57 @@ class ServeEngine:
         self.cfg = cfg
         self.scfg = scfg or ServeConfig()
         self.params = params
+        self.admission_info: dict | None = None
+        if (cost_engine is not None or self.scfg.device is not None
+                or self.scfg.gamma_budget_mb is not None):
+            self._admit(cost_engine)
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.scfg.seed)
+
+    def _admit(self, cost_engine) -> None:
+        """Predict the serving-cell footprint (prefill at n_slots × max_len)
+        and refuse placement over budget — same gate as launch/train.py."""
+        from repro_torch.engine import (
+            AnalyticalBackend,
+            BackendUnavailable,
+            CostEngine,
+            CostQuery,
+            resolve_device as resolve_spec,
+        )
+
+        spec = (resolve_spec(self.scfg.device)
+                if self.scfg.device is not None else None)
+        # Registry convention: ArchConfig.reduced() appends "-smoke"; the
+        # gate must predict the config actually being served.
+        arch, reduced = self.cfg.name, False
+        if arch.endswith("-smoke"):
+            arch, reduced = arch[: -len("-smoke")], True
+        engine = cost_engine or CostEngine(
+            AnalyticalBackend(lm_device=spec, reduced=reduced), device=spec)
+        budget = self.scfg.gamma_budget_mb
+        if budget is None and spec is not None and cost_engine is not None:
+            # an external engine may not carry our device: the configured
+            # device's capacity must still gate placement
+            budget = spec.hbm_bytes / 1e6
+        query = CostQuery(arch=arch, bs=self.scfg.n_slots,
+                          seq=self.scfg.max_len, stage="infer",
+                          reduced=reduced)
+        try:
+            ok, info = engine.admit(query, gamma_budget_mb=budget,
+                                    safety_margin=self.scfg.admission_margin)
+        except BackendUnavailable as e:
+            # unknown arch / untraceable cell: placement proceeds ungated
+            self.admission_info = {"skipped": str(e)}
+            return
+        if spec is not None:
+            info["device"] = spec.name
+        self.admission_info = info
+        if not ok:
+            raise PlacementRefused(
+                f"serving cell {self.cfg.name} n_slots={self.scfg.n_slots} "
+                f"max_len={self.scfg.max_len} predicted "
+                f"{info['gamma_eff']:.0f}MB effective > budget "
+                f"({info})", info)
 
     def _sample(self, logits) -> np.ndarray:
         z = logits[:, -1].float()

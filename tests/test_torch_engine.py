@@ -258,9 +258,56 @@ def test_forest_backend_support_as_reference(predictors, spec_pairs):
     assert ForestBackend().cache_salt() == ref_backends.ForestBackend().cache_salt()
 
 
-def test_forest_backend_lm_forest_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ForestBackend(lm=object())
+class _FakeLMForest:
+    """A fitted LM forest stand-in (the reference's tests' ``_FakeLMForest``
+    with an optional energy model): constant (Γ, Φ[, E]) per query.  One
+    per package: ``default_device`` is that package's ``host_cpu``."""
+
+    fitted = True
+    meta = {"plan_hash": "plan-7"}
+
+    def __init__(self, get_device, gamma_mb, phi_ms=1.0, energy_j=None):
+        self.gamma_mb, self.phi_ms, self.energy_j = gamma_mb, phi_ms, energy_j
+        self.energy_fitted = energy_j is not None
+        self.default_device = get_device("host_cpu")
+
+    def content_hash(self):
+        return f"fake-{self.gamma_mb}-{self.phi_ms}-{self.energy_j}"
+
+    def predict_queries(self, queries):
+        g = np.array([self.gamma_mb * q.bs for q in queries])
+        return g, np.full(len(queries), self.phi_ms)
+
+    def predict_energy(self, queries):
+        return np.array([self.energy_j * q.seq for q in queries])
+
+
+@pytest.mark.parametrize("energy_j", [None, 0.25])
+def test_forest_backend_lm_branch_as_reference(predictors, spec_pairs, energy_j):
+    mine_p, ref_p = predictors
+    mine = ForestBackend(train=mine_p, lm=_FakeLMForest(devices.get_device, 40.0, 3.0, energy_j))
+    ref = ref_backends.ForestBackend(train=ref_p,
+                                     lm=_FakeLMForest(ref_devices.get_device, 40.0, 3.0, energy_j))
+    assert mine.cache_salt() == ref.cache_salt()
+    (m, r) = spec_pairs[0]
+    qs = [dict(arch="qwen3-4b", bs=2, seq=128), dict(arch="internlm2-1.8b", bs=5, seq=64,
+                                                     stage="train")]
+    got = mine.estimate([CostQuery(spec=m, bs=4)] + [CostQuery(**q) for q in qs])
+    want = ref.estimate([ref_types.CostQuery(spec=r, bs=4)]
+                        + [ref_types.CostQuery(**q) for q in qs])
+    assert [e.to_dict() for e in got] == [e.to_dict() for e in want]
+    assert got[1].detail == {"lm": True, "device": "host_cpu", "plan_hash": "plan-7"}
+
+
+def test_forest_backend_unfitted_lm_forest_as_reference():
+    """``ForestBackend(lm=<not fitted>)`` answers no arch query and salts
+    as if it had none, as the reference's does."""
+    q = dict(arch="qwen3-4b", bs=2)
+    mine, ref = ForestBackend(lm=object()), ref_backends.ForestBackend(lm=object())
+    assert mine.cache_salt() == ref.cache_salt() == ForestBackend().cache_salt()
+    assert not mine.supports(CostQuery(**q)) and not ref.supports(ref_types.CostQuery(**q))
+    with pytest.raises(BackendUnavailable, match="forest backend cannot answer"):
+        mine.estimate([CostQuery(**q)])
 
 
 # ---------------------------------------------------------------------------
@@ -328,11 +375,14 @@ def test_analytical_backend_salt_tracks_its_configuration():
 
 
 def test_analytical_backend_falls_through_on_arch_and_model_only(spec_pairs):
+    """An arch query the backend cannot trace (an unknown arch id) raises
+    ``BackendUnavailable``, as a model-only query does, so an ensemble
+    falls through to its next link."""
     backend = AnalyticalBackend()
     m = pruning.pruned_model("squeezenet", 0.3, "random", 0, width_mult=WM, input_hw=HW)
-    assert backend.supports(CostQuery(bs=2, arch="qwen3-4b"))
-    with pytest.raises(BackendUnavailable, match="5b"):
-        backend.estimate([CostQuery(bs=2, arch="qwen3-4b")])
+    assert backend.supports(CostQuery(bs=2, arch="no-such-arch"))
+    with pytest.raises(BackendUnavailable, match="trace failed for no-such-arch"):
+        backend.estimate([CostQuery(bs=2, arch="no-such-arch")])
     assert not backend.supports(CostQuery(bs=2, model=m))
     with pytest.raises(BackendUnavailable, match="model-only"):
         backend.estimate([CostQuery(bs=2, model=m)])
@@ -341,8 +391,137 @@ def test_analytical_backend_falls_through_on_arch_and_model_only(spec_pairs):
     # reaches the next link
     stub = _Stub("next", answer=7.0)
     ests = EnsembleBackend([backend, stub]).estimate(
-        [CostQuery(spec=spec_pairs[0][0], bs=2), CostQuery(bs=2, arch="qwen3-4b")])
+        [CostQuery(spec=spec_pairs[0][0], bs=2), CostQuery(bs=2, arch="no-such-arch")])
     assert [e.source for e in ests] == ["analytical", "next"]
+    assert backend.traces == 0
+
+
+# ---------------------------------------------------------------------------
+# AnalyticalBackend's LM branch: the step traced on meta tensors
+# ---------------------------------------------------------------------------
+
+LM_CASES = {"infer": ("qwen3-4b", 2, 64), "train": ("internlm2-1.8b", 2, 64)}
+
+
+def _lm_spec_pair(fitted: bool):
+    """The h100 spec in both packages, with class-wise LM constants when
+    ``fitted`` (planted: the campaign fit is ROADMAP queue 1 item 6)."""
+    kw = {}
+    if fitted:
+        kw["class_coeffs"] = {
+            "lm_latency": {"_intercept": 2e-3, "flops_matmul": 1.5e-15,
+                           "hbm_elementwise": 4e-13, "hbm_data_movement": 3e-13},
+            "lm_energy": {"_intercept": 0.5, "flops_matmul": 8e-13,
+                          "hbm_elementwise": 1e-10}}
+    mine = dataclasses.replace(devices.get_device("h100"), **kw)
+    return mine, ref_devices.DeviceSpec.from_dict(mine.to_dict())   # no h100 there
+
+
+@pytest.fixture(autouse=False)
+def _untuned(monkeypatch):
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+
+
+@pytest.mark.parametrize("fitted", [False, True], ids=["envelope", "fitted"])
+@pytest.mark.parametrize("stage", ["infer", "train"])
+def test_analytical_lm_estimate(_untuned, stage, fitted):
+    """Reduced archs, each stage: finite fields, the reference's ``detail``
+    keys, matmul FLOPs equal to the reference's HLO count (rel 1e-9),
+    ``cost_classes`` re-summing to the aggregates (flops and bytes exactly,
+    energy within 1e-9), Φ and energy from the envelope or from the fitted
+    class-wise constants over the ledger's class columns, a repeated query
+    answered from ``_compiled_cache`` with no trace, and the reference's
+    cache salt.  Γ and bytes are the port's own (eager, meta-traced) and
+    are printed beside the reference's."""
+    arch, bs, seq = LM_CASES[stage]
+    mine_dev, ref_dev = _lm_spec_pair(fitted)
+    mine = AnalyticalBackend(lm_device=mine_dev)
+    ref = ref_backends.AnalyticalBackend(lm_device=ref_dev)
+    assert mine.cache_salt() == ref.cache_salt()
+    q = CostQuery(arch=arch, bs=bs, seq=seq, stage=stage)
+    est = mine.estimate([q])[0]
+    want = ref.estimate([ref_types.CostQuery(arch=arch, bs=bs, seq=seq, stage=stage)])[0]
+    print(f"{arch} {stage}: Γ {est.gamma_mb:.3f} / {want.gamma_mb:.3f} MB, Φ "
+          f"{est.phi_ms:.5f} / {want.phi_ms:.5f} ms, bytes {est.detail['hbm_bytes']:.4e} / "
+          f"{want.detail['hbm_bytes']:.4e} (port / reference)")
+    d = est.detail
+    assert est.source == "analytical" and d.keys() == want.detail.keys()
+    assert np.isfinite([est.gamma_mb, est.phi_ms, est.energy_j]).all()
+    assert est.gamma_mb > 0 and est.phi_ms > 0 and est.energy_j > 0
+    assert d["flops"] == pytest.approx(want.detail["flops"], rel=1e-9)
+    assert d["collective_bytes"] == want.detail["collective_bytes"] == 0.0
+    assert (d["device"], d["reduced"], d["latency_fit"], d["energy_fit"]) == \
+        (want.detail["device"], True, want.detail["latency_fit"], want.detail["energy_fit"])
+    classes = d["cost_classes"]
+    assert sum(c["flops"] for c in classes.values()) == d["flops"]
+    assert sum(c["hbm_bytes"] for c in classes.values()) == d["hbm_bytes"]
+    assert d["energy_classes"] == {k: c["energy_j"] for k, c in classes.items()}
+    dyn = sum(d["energy_classes"].values())
+    cols = decompose.ledger_latency_columns([classes])
+    if fitted:
+        assert d["latency_fit"] == "classwise" and d["energy_fit"] == "fitted"
+        lat, en = mine_dev.class_coeffs["lm_latency"], mine_dev.class_coeffs["lm_energy"]
+        assert est.phi_ms == float(ref_decompose.classwise_seconds(cols, lat)[0]) * 1e3
+        assert est.energy_j == float(ref_decompose.classwise_seconds(cols, en)[0])
+    else:
+        compute_s, memory_s, coll_s = ref_decompose.lm_roofline_terms(
+            d["flops"], d["hbm_bytes"], 0.0, ref_dev)
+        assert est.phi_ms == ref_dev.combine_terms(compute_s, memory_s, coll_s) * 1e3
+        assert est.energy_j == pytest.approx(d["energy_static_j"] + dyn, rel=1e-12)
+        assert dyn == pytest.approx(ref_dev.dynamic_w * (compute_s + memory_s), rel=1e-9)
+    assert d["dominant"] in ("compute", "memory") and d["compile_s"] > 0
+    assert mine.traces == 1 and mine.last_trace[0] == q
+    assert mine.estimate([q])[0] is est and mine.traces == 1
+
+
+def test_analytical_lm_estimate_refuses_an_unknown_arch_and_keys_per_device(_untuned):
+    mine = AnalyticalBackend(lm_device="h100")
+    with pytest.raises(BackendUnavailable):
+        mine.estimate([CostQuery(arch="no-such-arch", bs=1, stage="infer")])
+    q = CostQuery(arch="qwen3-4b", bs=1, seq=32, stage="infer")
+    a = mine.estimate([q])[0]
+    mine.lm_device = devices.get_device("tpu_v5e")
+    b = mine.estimate([q])[0]
+    assert mine.traces == 2 and a.detail["device"] == "h100" and b.detail["device"] == "tpu_v5e"
+    assert a.gamma_mb == b.gamma_mb and a.phi_ms != b.phi_ms
+    full = mine.estimate([CostQuery(arch="qwen3-4b", bs=1, seq=32, stage="infer",
+                                    reduced=True)])[0]
+    assert full is b and mine.traces == 2     # reduced=None → the backend's default
+    mine_dev, ref_dev = _lm_spec_pair(False)
+    for reduced in (True, False):
+        assert AnalyticalBackend(lm_device=mine_dev, reduced=reduced).cache_salt() == \
+            ref_backends.AnalyticalBackend(lm_device=ref_dev, reduced=reduced).cache_salt()
+
+
+def test_price_ledger_energy_bit_for_bit_across_packages(tmp_path, _untuned):
+    """A traced ledger carried across as JSON, priced by each package under
+    the same specs: every record's energy and the total are equal."""
+    from repro.costmodel import CostLedger as RefLedger
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.hlo_cost import trace_cost
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("qwen3-4b", reduced=True)
+    spec = T.input_specs(cfg, "prefill", batch_size=2, seq_len=32)
+    ledger = trace_cost(T.prefill, T.param_specs(cfg), spec["batch"], cfg,
+                        max_len=32).ledger
+    path = str(tmp_path / "ledger.json")
+    ledger.save(path)
+    ref_ledger = RefLedger.load(path)
+    cal = _calibrated_pair()
+    pairs = [(devices.get_device(n), ref_devices.get_device(n))
+             for n in ("tpu_v5e", "tx2_like", "host_cpu")]
+    for mine_dev, ref_dev in pairs + [_lm_spec_pair(False), cal]:
+        a = decompose.price_ledger_energy(ledger, mine_dev)
+        b = ref_decompose.price_ledger_energy(ref_ledger, ref_dev)
+        assert [r.energy_j for r in a] == [r.energy_j for r in b]
+        assert a.energy_j == b.energy_j and a.class_sums() == b.class_sums()
+        assert [r.to_dict() for r in a] == [r.to_dict() for r in b]
+    cols = decompose.ledger_latency_columns([ledger, None])
+    want = ref_decompose.ledger_latency_columns([ref_ledger, None])
+    assert cols.keys() == want.keys()
+    for k in cols:
+        np.testing.assert_array_equal(cols[k], want[k])
 
 
 # ---------------------------------------------------------------------------

@@ -256,3 +256,38 @@ def test_new_modules_of_the_layer_plan_slice_are_covered():
     for private in ("_moe_dispatch_group", "_moe_combine_group",
                     "_load_balance_loss", "_tuned_moe_dispatch", "_tuned_ssm_chunk"):
         assert callable(getattr(layers, private)), private
+
+
+def test_new_modules_of_the_admission_slice_are_covered():
+    """The cost-ledger producer, the roofline layer, serve admission and
+    failover, and the grown engine, serve and launch modules, named so
+    that a rename cannot drop them; the probe above holds that none of
+    them pulls in ``jax`` or ``repro``."""
+    import importlib
+
+    expected = {
+        "repro_torch.core.hlo_cost": {"HloCost", "trace_cost", "recording"},
+        "repro_torch.core.roofline": {"RooflineReport", "roofline_from_cost",
+                                      "model_flops_for_cell"},
+        "repro_torch.core.profiler": {"meta_memory"},
+        "repro_torch.costmodel": {"CostLedger", "OpCost", "OP_CLASSES", "classify_op"},
+        "repro_torch.engine.decompose": {"price_ledger_energy", "ledger_latency_columns"},
+        "repro_torch.engine": {"AnalyticalBackend", "ForestBackend", "CostEngine",
+                               "from_torch_device"},
+        "repro_torch.serve.scheduler": {"SLOScheduler", "PlacementRefused", "Decision",
+                                        "ServeSLO"},
+        "repro_torch.serve.health": {"FailoverChain", "STATIC_LEVEL"},
+        "repro_torch.serve": {"SLOScheduler", "FailoverChain", "STATIC_LEVEL",
+                              "ContinuousEngine", "ServeEngine"},
+        "repro_torch.kernels.autotune": {"untimed"},
+        "repro_torch.launch.train": {"main"},
+    }
+    for name, names in expected.items():
+        mod = importlib.import_module(name)
+        assert all(hasattr(mod, n) for n in names), name
+        assert names <= set(getattr(mod, "__all__", names)), name
+    backends = importlib.import_module("repro_torch.engine.backends")
+    assert not hasattr(backends, "LM_FOREST_TODO")
+    assert not hasattr(backends, "LM_ANALYTICAL_TODO")
+    assert not hasattr(importlib.import_module("repro_torch.serve.continuous"),
+                       "COST_ENGINE_TODO")

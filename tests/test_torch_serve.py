@@ -124,14 +124,6 @@ def test_lockstep_engine_streams_match(model):
     assert t["decode_steps"] == j["decode_steps"]
 
 
-def test_cost_engine_waits_for_its_port(model):
-    _, tcfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousEngine(tcfg, tp, cost_engine=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(tcfg, tp, cost_engine=object(), device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # Non-dense plans: an SSM stack in the lockstep engine, MoE in the paged one
 # ---------------------------------------------------------------------------

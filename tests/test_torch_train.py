@@ -312,10 +312,6 @@ def test_launcher_trains_and_prints_the_reference_summary(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag, value, item", [
-    ("--device", "host_cpu", "items 5a/5b"),
-    ("--memory-budget-gb", "4", "items 5a/5b"),
-    ("--energy-budget-j", "2", "items 5a/5b"),
-    ("--estimate-cache", "est.json", "items 5a/5b"),
     ("--lm-forest", "forest.npz", "item 6"),
     ("--auto-mesh", "2", "item 7"),
     ("--n-micro", "4", "item 7"),
@@ -324,3 +320,79 @@ def test_launcher_admission_flags_name_their_items(flag, value, item):
     with pytest.raises(NotImplementedError, match=item):
         launch.main(["--arch", "internlm2-1.8b", "--reduced", "--steps", "1",
                      "--torch-device", "cpu", flag, value])
+
+
+_ADMIT_ARGV = ["--arch", "internlm2-1.8b", "--reduced", "--steps", "1", "--batch", "2",
+               "--seq", "16"]
+
+
+def _no_training(monkeypatch):
+    """Both packages' trainers return an empty history: admission runs in
+    the constructor, so the gate's decision shows without a step."""
+    from repro.train import trainer as ref_trainer
+    from repro_torch.train import trainer as port_trainer
+
+    empty = lambda self, n: {"history": [], "stragglers": []}  # noqa: E731
+    monkeypatch.setattr(ref_trainer.Trainer, "train", empty)
+    monkeypatch.setattr(port_trainer.Trainer, "train", empty)
+
+
+@pytest.mark.parametrize("flags, admits", [
+    (["--memory-budget-gb", "0.001"], False),
+    (["--memory-budget-gb", "4"], True),
+    (["--energy-budget-j", "1e-9"], False),
+    (["--energy-budget-j", "1e6", "--admission-margin", "0"], True),
+    (["--device", "tpu_v5e"], True),
+])
+def test_launcher_admission_flags_as_reference(monkeypatch, capsys, flags, admits):
+    """``--memory-budget-gb``, ``--energy-budget-j``, ``--device`` and the
+    margin refuse or admit a reduced cell as the reference's launcher does
+    (a refusal: ``PlacementRefused``, a ``RuntimeError`` "admission
+    denied", raised before any parameter is drawn)."""
+    import sys
+
+    from repro.launch import train as ref_launch
+    from repro_torch.serve import PlacementRefused
+
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+    _no_training(monkeypatch)
+    draws = []
+    monkeypatch.setattr(T, "init_params", lambda *a, **k: draws.append(1))
+    monkeypatch.setattr(sys, "argv", ["train"] + _ADMIT_ARGV + flags)
+    try:
+        ref_launch.main()
+        ref_admits = True
+    except RuntimeError as e:
+        assert "admission denied" in str(e)
+        ref_admits = False
+    try:
+        launch.main(_ADMIT_ARGV + flags + ["--torch-device", "cpu"])
+        port_admits = True
+    except PlacementRefused as e:
+        assert str(e).startswith("admission denied: ") and isinstance(e, RuntimeError)
+        assert e.info["predicted_gb"] == e.info["gamma_mb"] / 1e3
+        port_admits = False
+    capsys.readouterr()
+    assert port_admits == ref_admits == admits and not draws
+
+
+def test_launcher_estimate_cache_readmits_without_a_trace(monkeypatch, capsys, tmp_path):
+    from repro_torch.engine import AnalyticalBackend
+
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+    _no_training(monkeypatch)
+    traces = []
+    trace = AnalyticalBackend._trace_arch
+    monkeypatch.setattr(AnalyticalBackend, "_trace_arch",
+                        lambda self, q: traces.append(q) or trace(self, q))
+    argv = _ADMIT_ARGV + ["--memory-budget-gb", "4", "--estimate-cache",
+                          str(tmp_path / "est.json"), "--torch-device", "cpu"]
+    launch.main(argv)
+    assert len(traces) == 1 and (tmp_path / "est.json").exists()
+    launch.main(argv)
+    assert len(traces) == 1
+    # --estimate-cache alone gates nothing, as in the reference
+    launch.main(_ADMIT_ARGV + ["--estimate-cache", str(tmp_path / "other.json"),
+                               "--torch-device", "cpu"])
+    assert len(traces) == 1 and not (tmp_path / "other.json").exists()
+    capsys.readouterr()
