@@ -34,7 +34,24 @@ Phases (any failure raises and the script exits non-zero):
    return, in f32 and with bf16 inputs; time kernel, plain version, a
    library yardstick and the bound with CUDA events (paged decode also at
    each token tile and split);
-5. serve — full-width qwen3-4b (random weights from seed 0, bf16) served
+5. serve — first, before the served weights are drawn (so that which
+   cells run out of memory does not depend on them), the campaign
+   (``repro_torch.campaign``): a plan over stablelm-1.6b,
+   internlm2-1.8b, qwen3-4b and mamba2-780m at full width, train B 1/2/4,
+   prefill B 1/2/4/8 and decode B 8/32 at 2048 tokens under the registry's
+   ``h100`` spec, three quarters of it by the plan's seeded subsample plus
+   the cells the later phases read, and stablelm-1.6b's cells on a 1x2
+   mesh; the ``CampaignRunner`` measures every cell on the card (zero-filled inputs,
+   CUDA-event Φ, ``max_memory_allocated`` Γ, the ledger traced on meta)
+   into a fresh ledger under ``build/repro_torch/campaign/``: every cell
+   measured or quarantined (out of memory, or ``MeshSpecError`` for the
+   1x2 cells), no kernel launched by a measured step, a second run
+   measures nothing, each record with the reference's keys and layout;
+   an ``LMForest`` fitted (held-out Γ/Φ MAPE printed), saved and reloaded
+   with identical predictions, the cost-ledger constants fitted
+   (aggregate and class-wise MAPE); internlm2-1.8b's train estimate
+   before and after the fitted constants.  Then full-width qwen3-4b
+   (random weights from seed 0, bf16) served
    by ``ContinuousEngine`` over the paged KV pool: 16 greedy requests,
    with the paged-decode launch count read around the run; then the
    kernel is held against its plain version on the served model's own
@@ -60,7 +77,14 @@ Phases (any failure raises and the script exits non-zero):
    down to static degraded mode (at most 2 concurrent while degraded,
    every request finishes); the training launcher refuses full-width
    internlm2-1.8b at ``--memory-budget-gb 20`` before drawing a
-   parameter;
+   parameter; then, on the same parameters, the 16 requests served under
+   ``SLOScheduler`` priced by the campaign's forest (``register_lm_forest``), at a
+   budget between the forest's Γ at 4 and 5 requests: ``lost == 0``, at
+   most k running, every admission query answered by the forest with no
+   trace, launch or allocation, paged-decode launches ``decode_steps x
+   36`` and the kernel within 1e-2 of its plain version; the launcher
+   with ``--lm-forest`` refuses internlm2-1.8b at half the forest's Γ
+   before drawing a parameter;
 6. layers — the non-dense layer plans (MoE, SSD, cross-attention): every
    registry architecture at ``reduced()`` in f32 (TF32 off, tuning pinned)
    on the card against the CPU, ``forward`` logits and ``prefill`` + one
@@ -125,7 +149,8 @@ Phases (any failure raises and the script exits non-zero):
    (``python -m repro_torch.bench.run``) gives it, seven families;
 11. a ``{"kernels": [...]}`` JSON line (the flash entry with the train
    phase's ``train_*`` numbers, paged decode with the layers phase's
-   ``moe_*`` and the admit phase's ``admit_*`` numbers, SSD with its
+   ``moe_*``, the admit phase's ``admit_*`` and the campaign phase's
+   ``campaign_*`` numbers, SSD with its
    ``serve_launches``), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -447,6 +472,7 @@ def serve_phase() -> dict:
     from repro_torch.serve import ContinuousConfig, ContinuousEngine, Request
 
     cfg = get_config("qwen3-4b")
+    campaign = campaign_phase()
     t0 = time.perf_counter()
     params = T.init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
@@ -530,9 +556,14 @@ def serve_phase() -> dict:
     t0 = time.perf_counter()
     admitted = admit_phase(cfg, params, scfg, prompts, ungated)
     print(f"admit phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gated = campaign_serve(cfg, params, scfg, prompts, ungated, campaign["forest"])
+    campaign_launcher(campaign["path"], campaign["forest"])
+    print(f"campaign serve and launcher done in {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
-    return {"launches": launches, "max_abs_err": err, "admit": admitted}
+    return {"launches": launches, "max_abs_err": err, "admit": admitted,
+            "campaign": {**gated, "estimates": campaign["estimates"]}}
 
 
 def decode_breakdown(cfg, params, scfg, prompts, n_steps: int = 8) -> None:
@@ -872,6 +903,398 @@ def admit_phase(cfg, params, scfg, prompts, ungated) -> dict:
           f"the ungated serve's max_memory_allocated "
           f"{ungated['max_memory_allocated'] / 1e9:.3f} GB (paged pool, chunked prefill)")
     return {**served, "train_estimate": estimates[("internlm2-1.8b", "train")]}
+
+
+# ---------------------------------------------------------------------------
+# The profiling campaign (repro_torch.campaign): full-width cells measured on
+# the card, an LMForest fitted from them, qwen3-4b served under its admission
+# ---------------------------------------------------------------------------
+
+CAMPAIGN_ARCHS = ("stablelm-1.6b", "internlm2-1.8b", "qwen3-4b", "mamba2-780m")
+CAMPAIGN_SEQ = 2048
+CAMPAIGN_BATCHES = {"train": (1, 2, 4), "prefill": (1, 2, 4, 8), "decode": (8, 32)}
+CAMPAIGN_MESH_ARCH = "stablelm-1.6b"    # its 1x2 row: the multi-device quarantine
+# the plan's own seeded subsample (stratified by arch) keeps the run near
+# four minutes and the script inside its time limit on a slow host; it
+# always keeps the cells the serve admission queries (qwen3-4b prefill
+# B 1-8) and the one set beside the train phase (internlm2-1.8b train B 4)
+CAMPAIGN_SUBSAMPLE = 0.75
+CAMPAIGN_REPEATS = dict(repeats=3, warmup=1)
+# the reference's record keys (src/repro/campaign/runner.py:186-208)
+CAMPAIGN_KEYS = ("arg_mb", "collective_bytes", "compile_s", "cost_classes",
+                 "device_fingerprint", "energy_j", "executed", "flops", "gamma_mb",
+                 "hbm_bytes", "layout", "n_devices", "phi_ms", "temp_mb", "watts_proxy")
+CAMPAIGN_DIR = ROOT / "build" / "repro_torch" / "campaign"
+
+
+def campaign_plan():
+    """The card grid: the four archs × train B 1/2/4, prefill B 1/2/4/8 and
+    decode B 8/32 at 2048 tokens on one device, under the registry's
+    ``h100`` spec, subsampled (``CAMPAIGN_SUBSAMPLE``), plus
+    ``CAMPAIGN_MESH_ARCH``'s cells on a 1x2 mesh."""
+    from repro_torch.campaign import CampaignPlan, plan_grid
+    from repro_torch.configs.base import ShapeSpec
+
+    shapes = tuple(ShapeSpec(f"{kind}_b{b}_s{CAMPAIGN_SEQ}", CAMPAIGN_SEQ, b, kind)
+                   for kind, bs in CAMPAIGN_BATCHES.items() for b in bs)
+    grid = plan_grid(CAMPAIGN_ARCHS, shapes, meshes=("1x1",), device="h100",
+                     reduced=False)
+    sub = plan_grid(CAMPAIGN_ARCHS, shapes, meshes=("1x1",), device="h100",
+                    reduced=False, subsample=CAMPAIGN_SUBSAMPLE, seed=0)
+    drawn = {c.key for c in sub.cells}
+    cells = [c for c in grid.cells if c.key in drawn
+             or (c.arch == "qwen3-4b" and c.shape.kind == "prefill")
+             or (c.arch == "internlm2-1.8b" and c.shape.name == "train_b4_s2048")]
+    row = plan_grid((CAMPAIGN_MESH_ARCH,), shapes, meshes=("1x1", "1x2"),
+                    device="h100", reduced=False)
+    multi = [c for c in row.cells if c.mesh != "1x1"]
+    return CampaignPlan(cells=cells + multi, seed=0,
+                        skipped=grid.skipped + row.skipped,
+                        meta={"grid": sub.meta, "multi_device": row.meta})
+
+
+def campaign_run(plan) -> tuple[list, dict]:
+    """Measure the plan on the card into a fresh ledger; gates: every cell
+    measured or quarantined, every quarantine an out-of-memory or the
+    multi-device ``MeshSpecError``, no kernel launched by a measured step
+    (train and prefill run ``blocked_attention``, decode the dense cache),
+    a second run measures nothing, and each record has the reference's
+    keys, its layout and Γ ≥ arg > 0, Φ > 0.  The steps run on a tuner of
+    their own (a fresh cache, timing on the card), so that the shapes they
+    time do not reach the later phases' tuner gates."""
+    from repro_torch.engine import from_torch_device
+    from repro_torch.kernels import autotune
+
+    CAMPAIGN_DIR.mkdir(parents=True, exist_ok=True)
+    tuning = CAMPAIGN_DIR / "kernel_tuning.json"
+    tuning.unlink(missing_ok=True)
+    previous = autotune.get_tuner()
+    autotune.set_tuner(autotune.KernelTuner(from_torch_device(), cache=str(tuning),
+                                            measure=True))
+    try:
+        return campaign_measure(plan)
+    finally:
+        autotune.set_tuner(previous)
+
+
+def campaign_measure(plan) -> tuple[list, dict]:
+    import torch
+
+    from repro_torch.campaign import CampaignLedger, CampaignRunner
+    from repro_torch.campaign.runner import _measure_cell
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.collectives import abstract_mesh, layout_collectives
+
+    ledger_path = CAMPAIGN_DIR / "ledger.jsonl"
+    ledger_path.unlink(missing_ok=True)
+    plan.save(str(CAMPAIGN_DIR / "plan.json"))
+    rows = {}
+
+    def measure(cell):
+        t0 = time.perf_counter()
+        traced = {}
+        try:
+            record, traced = _measure_cell(cell, **CAMPAIGN_REPEATS, run=True,
+                                           device="cuda")
+            return record
+        finally:
+            rows[cell.key] = (traced, time.perf_counter() - t0)
+
+    resident = torch.cuda.memory_allocated()
+    counts = kernel_counts()
+    window = TunerWindow()
+    runner = CampaignRunner(plan, str(ledger_path), measure=measure, device="cuda")
+    t0 = time.perf_counter()
+    out = runner.run_campaign()
+    secs = time.perf_counter() - t0
+    window.report("campaign")
+    if {n: c[0] for n, c in kernel_counts().items()} != {n: c[0] for n, c in counts.items()}:
+        raise AssertionError(f"campaign: a measured step launched a kernel: {counts} -> "
+                             f"{kernel_counts()}")
+    ledger = CampaignLedger(str(ledger_path))
+    ok, failed = ledger.records("ok"), ledger.records("failed")
+    print(f"campaign run {plan.plan_hash}: {len(plan)} cells ({len(plan.skipped)} skipped "
+          f"at plan time), {out['measured']} measured, {out['failed']} quarantined in "
+          f"{secs:.1f} s; resident before the run {resident / 2**30:.2f} GiB, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for r in ledger.records():
+        traced, s = rows[r["key"]]
+        label = f"campaign cell {r['arch']} {r['shape']['name']} [{r['mesh']}]"
+        if r["status"] != "ok":
+            print(f"{label}: QUARANTINED in {s:.2f} s: {r['error'][:200]}")
+            continue
+        tg = sum(traced.values()) / 1e6
+        print(f"{label}: Γ {r['gamma_mb']:.1f} MB (arg {r['arg_mb']:.1f}, temp "
+              f"{r['temp_mb']:.1f}), traced Γ {tg:.1f} MB ({tg / r['gamma_mb']:.3f}x), "
+              f"Φ {r['phi_ms']:.3f} ms, first call {r['compile_s']:.2f} s, flops "
+              f"{r['flops']:.4e}, hbm bytes {r['hbm_bytes']:.4e}, energy "
+              f"{r['energy_j']:.3f} J, {s:.2f} s")
+    if out["measured"] + out["failed"] != len(plan) or out["remaining"] != 0 \
+            or len(ledger) != len(plan):
+        raise AssertionError(f"campaign: cells lost: {out}")
+    for r in failed:
+        multi = r["mesh"] != "1x1"
+        want = "MeshSpecError: " if multi else "OutOfMemoryError: "
+        if not r["error"].startswith(want) or (multi and "(1 short)" not in r["error"]):
+            raise AssertionError(f"campaign: unexpected quarantine {r['arch']} "
+                                 f"{r['shape']['name']} [{r['mesh']}]: {r['error']}")
+    if sum(c.mesh != "1x1" for c in plan.cells) != sum(r["mesh"] != "1x1" for r in failed):
+        raise AssertionError("campaign: a multi-device cell was not quarantined")
+    for r in ok:
+        cell_shape = plan.cells[[c.key for c in plan.cells].index(r["key"])].shape
+        want = layout_collectives(get_config(r["arch"]), cell_shape,
+                                  abstract_mesh((1, 1))).to_dict()
+        if tuple(sorted(k for k in r if k in CAMPAIGN_KEYS)) != CAMPAIGN_KEYS or \
+                r["layout"] != want or not (r["gamma_mb"] >= r["arg_mb"] > 0
+                                            and r["phi_ms"] > 0 and r["executed"]):
+            raise AssertionError(f"campaign: bad record {r['arch']} {r['shape']['name']}")
+    again = CampaignRunner(plan, str(ledger_path), measure=measure, device="cuda")
+    if again.run_campaign()["measured"] != 0:
+        raise AssertionError("campaign: the resumed run measured again")
+    return ok, {"seconds": secs, "measured": out["measured"], "failed": out["failed"]}
+
+
+def campaign_fit(records) -> tuple:
+    """The LMForest (held-out Γ/Φ MAPE printed, not gated), saved and
+    reloaded with identical predictions, and the cost-ledger constants
+    (aggregate and class-wise MAPE printed)."""
+    from repro_torch.campaign import LMForest, fit_hlo_constants, fit_lm_forest
+    from repro_torch.campaign.lm_features import feature_matrix
+
+    t0 = time.perf_counter()
+    forest = fit_lm_forest(records, holdout_frac=0.25, seed=0)
+    path = CAMPAIGN_DIR / "lm_forest.npz"
+    forest.save(str(path))
+    loaded = LMForest.load(str(path))
+    X = feature_matrix(records)
+    same = all(np.array_equal(a, b) for a, b in
+               zip(forest.predict_features(X), loaded.predict_features(X)))
+    m = forest.meta
+    print(f"campaign fit LMForest on {m['n_train']} cells, {m['n_heldout']} held out: "
+          f"held-out Γ MAPE {m.get('holdout_gamma_mape', float('nan')):.4f}, Φ MAPE "
+          f"{m.get('holdout_phi_mape', float('nan')):.4f}, energy MAPE "
+          f"{m.get('holdout_energy_mape', float('nan')):.4f} (reported, not gated); "
+          f"OOB Γ {m['oob_gamma_mape']}, Φ {m['oob_phi_mape']}; device {m['device']}, "
+          f"plan {m['plan_hash']}; saved to {path.relative_to(ROOT)} "
+          f"({path.stat().st_size} bytes), reloaded: identical predictions {same}")
+    if not (same and loaded.content_hash() == forest.content_hash()):
+        raise AssertionError("campaign: the reloaded forest predicts otherwise")
+    spec = fit_hlo_constants(records)
+    sm = spec.meta
+    print(f"campaign fit cost-ledger constants ({sm['n_cells']} cells): {sm['latency_fit']} "
+          f"fit, Φ MAPE aggregate {sm['phi_mape_aggregate']:.4f}, class-wise "
+          f"{sm['phi_mape_classwise']}; peak {spec.peak_flops:.4e} FLOP/s, hbm "
+          f"{spec.hbm_bw:.4e} B/s, launch {spec.launch_overhead_s * 1e3:.3f} ms; "
+          f"class-wise columns {sm['classwise_columns']}; energy {sm['energy_fit']} fit "
+          f"({sm.get('energy_mape')}); {time.perf_counter() - t0:.1f} s")
+    return forest, spec, path
+
+
+def campaign_estimates(fitted, records, forest) -> dict:
+    """internlm2-1.8b train B 4 × 2048 by the traced estimate on the
+    registry's ``h100`` spec, then on the fitted constants, and by the
+    forest, beside the campaign's own measurement of that cell."""
+    from repro_torch.engine import AnalyticalBackend, CostQuery, get_device
+
+    q = CostQuery(arch="internlm2-1.8b", bs=4, seq=2048, stage="train", reduced=False)
+    out = {}
+    for label, dev in (("before", get_device("h100")), ("after", fitted)):
+        est = AnalyticalBackend(lm_device=dev).estimate([q])[0]
+        out[label] = est
+    g, p = forest.predict_queries([q])
+    out["forest"] = (float(g[0]), float(p[0]))
+    out["measured"] = next((r for r in records if r["arch"] == "internlm2-1.8b"
+                            and r["shape"]["name"] == "train_b4_s2048"), None)
+    b, a = out["before"], out["after"]
+    meas = out["measured"]
+    print(f"campaign internlm2-1.8b train B=4 S=2048: traced estimate on h100 Γ "
+          f"{b.gamma_mb / 1e3:.3f} GB Φ {b.phi_ms:.2f} ms; on the fitted constants Γ "
+          f"{a.gamma_mb / 1e3:.3f} GB Φ {a.phi_ms:.2f} ms ({a.detail['latency_fit']}); "
+          f"forest Γ {out['forest'][0] / 1e3:.3f} GB Φ {out['forest'][1]:.2f} ms; the "
+          f"campaign measured " + (f"Γ {meas['gamma_mb'] / 1e3:.3f} GB Φ "
+                                   f"{meas['phi_ms']:.2f} ms" if meas else "nothing (quarantined)"))
+    return out
+
+
+def campaign_serve(cfg, params, scfg, prompts, ungated, forest) -> dict:
+    """admit-qwen3-4b's 16 requests and weights under ``SLOScheduler``
+    priced by the forest (``register_lm_forest`` on
+    ``CostEngine(Ensemble[ForestBackend, AnalyticalBackend])``), with no
+    estimate cache so that every query reaches the forest.  Budget: halfway
+    between the forest's Γ at 4 and 5 requests × max_len, ×(1 + margin);
+    gates: ``lost == 0``, at most k running (the largest k whose estimates
+    at 1..k all fit), every admission query answered by the forest with
+    no trace, no kernel launch and no allocation on the card, paged-decode
+    launches ``decode_steps × 36`` and the kernel within 1e-2 of its plain
+    version on the gated pool."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.campaign import register_lm_forest
+    from repro_torch.engine import (AnalyticalBackend, CostEngine, CostQuery,
+                                    EnsembleBackend, ForestBackend, from_torch_device)
+    from repro_torch.kernels.paged_decode import ops
+    from repro_torch.kernels.paged_decode.kernel import paged_decode_cuda
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+    from repro_torch.serve import ContinuousEngine, Request
+
+    spec = from_torch_device()
+    analytical = AnalyticalBackend(lm_device=spec)
+    engine = CostEngine(EnsembleBackend([ForestBackend(), analytical]), device=spec)
+    owner = register_lm_forest(engine, forest)
+    margin = scfg.safety_margin
+    gamma = {bs: engine.estimate_one(CostQuery(arch=cfg.name, bs=bs, seq=scfg.max_len,
+                                               stage="infer", reduced=False)).gamma_mb
+             for bs in range(1, scfg.n_slots + 1)}
+    budget = ((1 + margin) * gamma[4] + (1 + margin) * gamma[5]) / 2
+    k = 0
+    while k < scfg.n_slots and (1 + margin) * gamma[k + 1] <= budget:
+        k += 1
+    print(f"campaign serve: forest Γ(bs 1..{scfg.n_slots}, max_len {scfg.max_len}) "
+          + " / ".join(f"{gamma[b]:.1f}" for b in gamma) + f" MB, margin {margin}: "
+          f"gamma_budget_mb {budget:.1f}, gate k {k}"
+          + ("" if gamma[5] > gamma[4] else " (forest Γ(5) <= Γ(4): not monotone)"))
+    if k < 1:
+        raise AssertionError("campaign serve: the budget admits no request")
+    answers = []
+    estimate_one = engine.estimate_one
+
+    def watched(query):
+        torch.cuda.synchronize()
+        counts, alloc = kernel_counts(), torch.cuda.memory_allocated()
+        est = estimate_one(query)
+        torch.cuda.synchronize()
+        answers.append((est.source, bool(est.detail.get("lm")),
+                        kernel_counts() == counts, torch.cuda.memory_allocated() == alloc))
+        return est
+
+    engine.estimate_one = watched
+    gated = dataclasses.replace(scfg, gamma_budget_mb=budget)
+    ce = ContinuousEngine(cfg, params, gated, cost_engine=engine)
+    requests = [Request(p, max_new_tokens=32) for p in prompts]
+    last = {}
+    launch = ops.paged_decode_cuda
+
+    def keep_last(*args, **kw):
+        last["args"], last["kw"] = args, kw
+        return launch(*args, **kw)
+
+    traces = analytical.traces
+    torch.cuda.synchronize()
+    ops.paged_decode_cuda = keep_last
+    paged_decode_cuda.launches = 0
+    most = 0
+    t0 = time.perf_counter()
+    try:
+        for r in requests:
+            ce.submit(r)
+        while not ce.idle:
+            ce.step()
+            most = max(most, ce.n_running)
+        torch.cuda.synchronize()
+    finally:
+        ops.paged_decode_cuda = launch
+        engine.estimate_one = estimate_one
+    wall = time.perf_counter() - t0
+    launches = paged_decode_cuda.launches
+    m = ce.metrics()
+    by_forest = sum(s == "forest" and lm for s, lm, _, _ in answers)
+    print(f"campaign serve qwen3-4b forest-gated: {m['finished']} finished, {m['refused']} "
+          f"refused, lost={m['lost']}, defer_backoffs={m['defer_backoffs']}, largest "
+          f"concurrent {most} (gate k {k}), decode_steps={m['decode_steps']}, paged_decode "
+          f"launches={launches}; {len(answers)} admission queries, {by_forest} answered by "
+          f"the forest, analytical traces {analytical.traces - traces}; forest owner "
+          f"{type(owner).__name__}")
+    if not (m["finished"] == len(requests) and m["lost"] == 0 and m["refused"] == 0
+            and most <= k):
+        raise AssertionError(f"campaign serve: {m}, largest concurrent {most} > {k}?")
+    if not (answers and by_forest == len(answers) and analytical.traces == traces
+            and all(same and alloc for _, _, same, alloc in answers)):
+        raise AssertionError("campaign serve: an admission query was not answered by "
+                             "the forest alone, or it traced, launched or allocated")
+    if not launches == m["decode_steps"] * cfg.n_layers > 0:
+        raise AssertionError(f"campaign serve: paged_decode launches {launches} != "
+                             f"decode_steps {m['decode_steps']} x {cfg.n_layers}")
+    q, kp, vp, bt, cl = last["args"]
+    got = paged_decode_cuda(q, kp, vp, bt, cl, **last["kw"])
+    want = paged_decode_ref(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and got.shape == q.shape):
+        raise AssertionError("campaign serve: paged_decode output not finite")
+    err = float((got.float() - want.float()).abs().max())
+    um, uw = ungated["metrics"], ungated["wall"]
+    print(f"campaign serve paged_decode on the gated pool (last step, cache_len="
+          f"{cl.tolist()}): max_abs_err={err:.3e} (tol {TOL['bfloat16']})")
+    print(f"campaign serve forest-gated / ungated: {m['tokens_out'] / wall:.1f} / "
+          f"{um['tokens_out'] / uw:.1f} tokens/s; TTFT p50 {m['ttft_p50_ms']:.1f} / "
+          f"{um['ttft_p50_ms']:.1f} ms; TPOT p50 {m['tpot_p50_ms']:.2f} / "
+          f"{um['tpot_p50_ms']:.2f} ms")
+    if not err <= TOL["bfloat16"]:
+        raise AssertionError(f"campaign serve: paged_decode disagrees: {err}")
+    return {"launches": launches, "max_abs_err": err, "k": k}
+
+
+def campaign_launcher(forest_path, forest) -> None:
+    """The launcher with ``--lm-forest`` refuses full-width internlm2-1.8b
+    (B 4 × 2048) at half the forest's Γ before drawing a parameter, on the
+    forest's answer alone."""
+    import torch
+
+    from repro_torch.engine import AnalyticalBackend, CostQuery
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import PlacementRefused
+
+    g, _ = forest.predict_queries([CostQuery(arch="internlm2-1.8b", bs=4, seq=2048,
+                                             stage="train", reduced=False)])
+    tight = float(g[0]) / 2e3
+    draws, traces = [], []
+    init, trace = T.init_params, AnalyticalBackend._trace_arch
+
+    def counted(*a, **kw):
+        draws.append(1)
+        return init(*a, **kw)
+
+    def traced(self, q):
+        traces.append(q)
+        return trace(self, q)
+
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    T.init_params, AnalyticalBackend._trace_arch = counted, traced
+    t0 = time.perf_counter()
+    try:
+        launch.main(["--arch", "internlm2-1.8b", "--steps", "1", "--batch", "4",
+                     "--seq", "2048", "--lm-forest", str(forest_path),
+                     "--memory-budget-gb", f"{tight:.4f}"])
+    except PlacementRefused as e:
+        refusal = e
+    else:
+        raise AssertionError("the launcher admitted internlm2-1.8b under the forest")
+    finally:
+        T.init_params, AnalyticalBackend._trace_arch = init, trace
+    print(f"campaign launcher internlm2-1.8b B=4 S=2048 --lm-forest --memory-budget-gb "
+          f"{tight:.4f}: refused in {time.perf_counter() - t0:.2f} s by "
+          f"{refusal.info['source']}, predicted {refusal.info['predicted_gb']:.3f} GB, "
+          f"parameters drawn {len(draws)}, traces {len(traces)}")
+    if draws or traces or refusal.info["source"] != "forest" or \
+            torch.cuda.memory_allocated() != alloc:
+        raise AssertionError("the launcher drew, traced or allocated before refusing")
+
+
+def campaign_phase() -> dict:
+    """The profiling campaign on the card (see the module docstring, phase
+    5): plan, run, fit and the internlm2-1.8b estimates; the forest it
+    returns gates the serve phase's qwen3-4b."""
+    t0 = time.perf_counter()
+    plan = campaign_plan()
+    records, run = campaign_run(plan)
+    forest, fitted, path = campaign_fit(records)
+    estimates = campaign_estimates(fitted, records, forest)
+    print(f"campaign phase: {len(plan)} cells, run {run['seconds']:.1f} s, plan to "
+          f"estimates {time.perf_counter() - t0:.1f} s")
+    return {"forest": forest, "path": path, "estimates": estimates}
 
 
 def reference_phase() -> None:
@@ -2903,6 +3326,16 @@ def main() -> int:
     print(f"admit internlm2-1.8b train bs=4 seq=2048: Γ {est.gamma_mb / 1e3:.3f} GB, Φ "
           f"{est.phi_ms:.2f} ms against the train phase's peak {trained['peak'] / 1e9:.3f} "
           f"GB and median step {trained['step_ms']:.1f} ms")
+    ce = served["campaign"]["estimates"]
+    meas = ce["measured"]
+    print(f"campaign internlm2-1.8b train bs=4 seq=2048 against the train phase's peak "
+          f"{trained['peak'] / 1e9:.3f} GB and median step {trained['step_ms']:.1f} ms: "
+          f"traced estimate before the fit Γ {ce['before'].gamma_mb / 1e3:.3f} GB Φ "
+          f"{ce['before'].phi_ms:.2f} ms, after Γ {ce['after'].gamma_mb / 1e3:.3f} GB Φ "
+          f"{ce['after'].phi_ms:.2f} ms; forest Γ {ce['forest'][0] / 1e3:.3f} GB Φ "
+          f"{ce['forest'][1]:.2f} ms; the campaign's cell "
+          + (f"Γ {meas['gamma_mb'] / 1e3:.3f} GB Φ {meas['phi_ms']:.2f} ms"
+             if meas else "quarantined"))
     cnn = cnn_phase()
     engine = engine_phase(cnn)
     bench = bench_phase(cnn)
@@ -2919,6 +3352,8 @@ def main() -> int:
         "moe_max_abs_err": layered["moe_max_abs_err"],
         "admit_launches": served["admit"]["launches"],
         "admit_max_abs_err": served["admit"]["max_abs_err"],
+        "campaign_launches": served["campaign"]["launches"],
+        "campaign_max_abs_err": served["campaign"]["max_abs_err"],
     }, {
         "name": "conv_mm",
         "route": "cuda",

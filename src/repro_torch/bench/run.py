@@ -25,11 +25,13 @@ import traceback
 
 # ROADMAP.md, queue 1: what each bench that is not ported waits for
 NOT_PORTED = {
-    "roofline": "ROADMAP queue 1 item 5b (the cost ledger) and item 7 "
-                "(launch/dryrun, which writes the dry-run reports it reads)",
-    "kernels": "ROADMAP queue 1 item 7 (launch/mesh's device table)",
-    "engine": "ROADMAP queue 1 items 5b (ledger_breakdown_parity), 6 "
-              "(campaign_accuracy) and 7 (planner_bench)",
+    "roofline": "ROADMAP queue 1 item 7c (launch/dryrun, which writes the "
+                "dry-run reports it reads)",
+    "kernels": "ROADMAP queue 1 item 1i (kernel_bench, reading the card's "
+               "spec where the reference reads launch/mesh's TPU table)",
+    "engine": "ROADMAP queue 1 item 1i (the engine_bench port: run, "
+              "calibration_accuracy, ledger_breakdown_parity, "
+              "campaign_accuracy) and item 7b (planner_bench)",
 }
 
 

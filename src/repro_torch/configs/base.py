@@ -1,10 +1,9 @@
 """Architecture configuration: the frozen :class:`ArchConfig`.
 
-Port of ``repro/configs/base.py``.  This slice keeps ``ArchConfig``
-whole (``reduced()``, ``padded_vocab``, ``head_dim_``, ``param_count``)
-and ``ShapeSpec``, the workload shape the data pipeline and the trainer
-take; the named shapes (``SHAPES``) and ``mesh_split`` come with the
-slices that use them.
+Port of ``repro/configs/base.py``, whole: ``ArchConfig``
+(``reduced()``, ``padded_vocab``, ``head_dim_``, ``param_count``),
+``ShapeSpec``, the named shapes (``SHAPES``, ``TRAIN_SHAPES``,
+``DECODE_SHAPES``) and ``mesh_split``.
 
 ``reduced()`` derives the same-family smoke-test config (small layers/width,
 few experts, tiny vocab) that runs a real step on CPU.
@@ -14,11 +13,26 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-__all__ = ["ArchConfig", "ShapeSpec"]
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "TRAIN_SHAPES", "DECODE_SHAPES",
+           "mesh_split"]
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def mesh_split(mesh_dims: tuple[int, ...]) -> tuple[int, int, int]:
+    """(n_devices, n_data, n_model) of a mesh-dims tuple.
+
+    THE single statement of the mesh convention: the model axis is last,
+    everything before it (pod, data) is data parallelism.  Registry cell
+    filtering, campaign featurization and the layout accounting all
+    assume this order — change it here or nowhere."""
+    n_model = mesh_dims[-1]
+    n_data = 1
+    for d in mesh_dims[:-1]:
+        n_data *= d
+    return n_data * n_model, n_data, n_model
 
 
 @dataclass(frozen=True)
@@ -167,3 +181,14 @@ class ShapeSpec:
     @property
     def tokens(self) -> int:
         return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+TRAIN_SHAPES = ("train_4k",)
+DECODE_SHAPES = ("decode_32k", "long_500k")

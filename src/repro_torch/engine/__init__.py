@@ -5,10 +5,9 @@ CostEstimate[]`` — over the three cost paths: the fitted perf4sight
 forest, the analytical model (closed forms for CNNs, a traced aten-op
 ledger for LMs), and the ground-truth profiler on the card.  Hardware
 constants live in the device registry (:mod:`repro_torch.engine.devices`)
-and are fitted per device by :mod:`repro_torch.engine.calibrate`.  The
-campaign-fitted ``LMForest`` that ``ForestBackend(lm=…)`` reads in the
-reference waits for ROADMAP queue 1 item 6; any fitted LM forest object
-plugs in meanwhile.
+and are fitted per device by :mod:`repro_torch.engine.calibrate`.
+``ForestBackend(lm=…)`` reads the campaign-fitted ``LMForest``
+(:mod:`repro_torch.campaign`).
 """
 
 from repro_torch.engine.backends import (

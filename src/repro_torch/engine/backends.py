@@ -22,10 +22,11 @@ reference compiles the step with ``jax.jit`` and parses XLA's HLO, the
 port traces the eager step (``core/hlo_cost.trace_cost``); FLOPs agree,
 bytes are eager's (unfused) and Γ is the written definition of a traced
 step (``core/profiler.meta_memory``).  ``ForestBackend``'s LM branch
-takes any fitted LM forest (``fitted``, ``content_hash()``,
-``predict_queries``, ``default_device``, ``meta``, optional
-``predict_energy``/``energy_fitted``); the campaign-fitted ``LMForest``
-itself waits for ROADMAP queue 1 item 6.
+reads the campaign-fitted ``repro_torch.campaign.LMForest`` (any object
+with ``fitted``, ``content_hash()``, ``predict_queries``,
+``default_device``, ``meta`` and optional
+``predict_energy``/``energy_fitted`` will do); ``campaign.fit
+.register_lm_forest`` attaches one to an engine's chain.
 """
 
 from __future__ import annotations

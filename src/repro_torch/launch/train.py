@@ -9,19 +9,21 @@ The reference's flags and its JSON summary.  ``--torch-device`` (default
 names a ``DeviceSpec`` for admission and keeps that meaning here.
 
 Before anything is drawn, the launcher asks the cost engine
-(``repro_torch.engine``) for the training step's footprint — the
-``AnalyticalBackend``'s LM branch: the step (``loss_fn``, backward,
-AdamW) traced on meta tensors, its aten-op ledger priced by the device's
-roofline, no execution — and refuses a job over ``--memory-budget-gb`` or
+(``repro_torch.engine``) for the training step's footprint — with
+``--lm-forest``, a campaign-fitted ``LMForest`` first
+(``ForestBackend(lm=LMForest.load(path))``: no trace, nothing on the
+card), then the ``AnalyticalBackend``'s LM branch for what the forest
+cannot answer: the step (``loss_fn``, backward, AdamW) traced on meta
+tensors, its aten-op ledger priced by the device's roofline, no
+execution — and refuses a job over ``--memory-budget-gb`` or
 ``--energy-budget-j`` (inflated by ``--admission-margin``), or over the
 ``--device``'s capacity, with :class:`PlacementRefused` (the paper's §6.4
 safety property).  Estimates are cached on disk (``--estimate-cache``), so
 re-launching the same cell readmits with no new trace.  Then it warms the
 kernel tuning cache for the cell (``warm_autotune(stages=("train",))``).
 
-``--lm-forest`` waits on ``LMForest`` (ROADMAP.md, Queue 1, item 6),
-``--auto-mesh`` and ``--n-micro`` on the planner (item 7); each raises
-``NotImplementedError``.
+``--auto-mesh`` and ``--n-micro`` wait on the planner (ROADMAP.md,
+Queue 1, item 7b); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,9 +41,8 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 __all__ = ["main"]
 
 _WAITS_ON = {
-    "lm_forest": "LMForest (campaign/) is not ported yet (ROADMAP.md, Queue 1, item 6)",
-    "auto_mesh": "the auto-sharding planner is not ported yet (ROADMAP.md, Queue 1, item 7)",
-    "n_micro": "the auto-sharding planner is not ported yet (ROADMAP.md, Queue 1, item 7)",
+    "auto_mesh": "the auto-sharding planner is not ported yet (ROADMAP.md, Queue 1, item 7b)",
+    "n_micro": "the auto-sharding planner is not ported yet (ROADMAP.md, Queue 1, item 7b)",
 }
 
 
@@ -78,11 +79,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--estimate-cache", default=None,
                     help="JSON path for the engine's on-disk estimate cache")
     ap.add_argument("--lm-forest", default=None,
-                    help="campaign-fitted LM forest (not ported yet: item 6)")
+                    help="campaign-fitted LMForest (.npz/.json from "
+                         "`python -m repro_torch.campaign fit`): answer LM "
+                         "admission with no trace, falling back to the "
+                         "analytical trace only for cells the forest cannot "
+                         "answer")
     ap.add_argument("--auto-mesh", type=int, default=None, metavar="N",
-                    help="planner-chosen layout of N devices (not ported yet: item 7)")
+                    help="planner-chosen layout of N devices (not ported yet: item 7b)")
     ap.add_argument("--n-micro", type=int, default=None,
-                    help="the planner's microbatches (not ported yet: item 7)")
+                    help="the planner's microbatches (not ported yet: item 7b)")
     return ap
 
 
@@ -91,20 +96,26 @@ def _admission(args):
     step, or None when no admission flag is given.  A refusal raises
     :class:`PlacementRefused` (a ``RuntimeError``, "admission denied")."""
     if (args.memory_budget_gb is None and args.device is None
-            and args.energy_budget_j is None):
+            and args.lm_forest is None and args.energy_budget_j is None):
         return None
     from repro_torch.engine import (
         AnalyticalBackend,
         CostEngine,
         CostQuery,
         EnsembleBackend,
+        ForestBackend,
         resolve_device,
     )
 
     device = resolve_device(args.device) if args.device else None
-    engine = CostEngine(
-        EnsembleBackend([AnalyticalBackend(reduced=args.reduced, lm_device=device)]),
-        cache=args.estimate_cache, device=device)
+    chain = []
+    if args.lm_forest:
+        from repro_torch.campaign import LMForest
+
+        chain.append(ForestBackend(lm=LMForest.load(args.lm_forest)))
+    chain.append(AnalyticalBackend(reduced=args.reduced, lm_device=device))
+    engine = CostEngine(EnsembleBackend(chain), cache=args.estimate_cache,
+                        device=device)
 
     def admission(cfg, shape):
         ok, info = engine.admit(

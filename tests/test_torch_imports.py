@@ -68,8 +68,13 @@ def _entry_points():
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch import train as launch_train
     from repro_torch.train.trainer import Trainer
+    from repro_torch.campaign import CampaignCell, CampaignRunner, smoke_plan
+    from repro_torch.campaign import __main__ as campaign_cli
+    from repro_torch.campaign.runner import measure_cell
+    from repro_torch.launch.lowering import compile_cell
 
     cfg = get_config("qwen3-4b", reduced=True)
+    cell = CampaignCell("qwen3-4b", ShapeSpec("t", 16, 2, "train"))
     params = T.init_params(cfg, 0, device="cpu")
     cnn = build_squeezenet(width_mult=0.125, input_hw=16)
     return {
@@ -89,6 +94,11 @@ def _entry_points():
         "TokenPipeline": lambda: TokenPipeline(cfg, ShapeSpec("t", 16, 2, "train")),
         "launch.train": lambda: launch_train.main(
             ["--arch", "qwen3-4b", "--reduced", "--steps", "1"]),
+        "CampaignRunner": lambda: CampaignRunner(smoke_plan(subsample=2), "/dev/null"),
+        "measure_cell": lambda: measure_cell(cell),
+        "compile_cell": lambda: compile_cell(cfg, cell.shape),
+        "campaign run": lambda: campaign_cli.main(
+            ["run", "--plan", str(ROOT / "missing-plan.json"), "--ledger", "/dev/null"]),
     }
 
 
@@ -98,7 +108,9 @@ def _entry_points():
                                   "profile_training", "profile_inference",
                                   "collect_grid", "cnn_params_from_numpy",
                                   "ProfilerBackend", "train_state_from_jax",
-                                  "Trainer", "TokenPipeline", "launch.train"])
+                                  "Trainer", "TokenPipeline", "launch.train",
+                                  "CampaignRunner", "measure_cell", "compile_cell",
+                                  "campaign run"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     call = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -291,3 +303,69 @@ def test_new_modules_of_the_admission_slice_are_covered():
     assert not hasattr(backends, "LM_ANALYTICAL_TODO")
     assert not hasattr(importlib.import_module("repro_torch.serve.continuous"),
                        "COST_ENGINE_TODO")
+
+
+def test_kernels_package_reexports_the_tuner_api():
+    """``repro_torch.kernels`` re-exports the tuner's API, the reference's
+    ``__all__`` name for name (ROADMAP queue 3 item 1), and importing the
+    package builds no kernel and touches no CUDA state."""
+    probe = ("import sys, torch; import repro_torch.kernels as k; "
+             "from repro_torch.kernels import KernelTuner; "
+             "print(sorted(k.__all__), torch.cuda.is_initialized(), "
+             "sorted(m for m in sys.modules if m.startswith('repro_torch.kernels.')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import repro.kernels as ref_kernels
+    import repro_torch.kernels as kernels
+
+    assert kernels.__all__ == ref_kernels.__all__
+    assert all(callable(getattr(kernels, n)) for n in kernels.__all__)
+    names = str(sorted(ref_kernels.__all__))
+    assert out.stdout.strip() == f"{names} False ['repro_torch.kernels.autotune']"
+
+
+def test_new_modules_of_the_campaign_slice_are_covered():
+    """The campaign slice (queue 1 items 6 and 7a): the modules and names
+    it adds, named so that a rename cannot drop them; the probe above
+    holds that none of them pulls in ``jax`` or ``repro``."""
+    import importlib
+
+    from repro.campaign import __all__ as ref_campaign_all
+
+    expected = {
+        "repro_torch.campaign": set(ref_campaign_all),
+        "repro_torch.campaign.plan": {"SMOKE_SHAPES", "CampaignCell", "CampaignPlan",
+                                      "mesh_dims", "resolve_shape", "plan_grid",
+                                      "smoke_plan", "collective_smoke_plan", "load_plan"},
+        "repro_torch.campaign.lm_features": {"LM_FEATURE_NAMES", "cell_features",
+                                             "feature_matrix", "query_cell"},
+        "repro_torch.campaign.runner": {"CampaignLedger", "CampaignRunner", "CellTimeout",
+                                        "measure_cell"},
+        "repro_torch.campaign.fit": {"LMForest", "split_records", "fit_lm_forest",
+                                     "check_device_fingerprints", "fit_hlo_constants",
+                                     "register_lm_forest"},
+        "repro_torch.campaign.__main__": {"main"},
+        "repro_torch.distributed.sharding": {"param_pspecs", "batch_pspecs",
+                                             "cache_pspecs", "state_pspecs",
+                                             "fsdp_wanted", "LeafSharding",
+                                             "describe_sharding"},
+        "repro_torch.distributed.collectives": {"COLLECTIVE_CLASSES", "abstract_mesh",
+                                                "LayoutCollectives",
+                                                "layout_collectives"},
+        "repro_torch.distributed.pipeline_parallel": {"bubble_fraction"},
+        "repro_torch.launch.mesh": {"MeshSpecError", "validate_mesh_spec", "dp_axes"},
+        "repro_torch.launch.lowering": {"make_train_step", "compile_cell"},
+        "repro_torch.configs.base": {"SHAPES", "TRAIN_SHAPES", "DECODE_SHAPES",
+                                     "mesh_split"},
+        "repro_torch.configs.registry": {"get_shape", "all_cells"},
+    }
+    for name, names in expected.items():
+        mod = importlib.import_module(name)
+        assert all(hasattr(mod, n) for n in names), name
+        assert names <= set(getattr(mod, "__all__", names)), name
+    registry = importlib.import_module("repro_torch.configs.registry")
+    assert callable(registry.cell_supported)
+    launch = importlib.import_module("repro_torch.launch.train")
+    assert "lm_forest" not in launch._WAITS_ON

@@ -312,7 +312,6 @@ def test_launcher_trains_and_prints_the_reference_summary(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag, value, item", [
-    ("--lm-forest", "forest.npz", "item 6"),
     ("--auto-mesh", "2", "item 7"),
     ("--n-micro", "4", "item 7"),
 ])
@@ -320,6 +319,16 @@ def test_launcher_admission_flags_name_their_items(flag, value, item):
     with pytest.raises(NotImplementedError, match=item):
         launch.main(["--arch", "internlm2-1.8b", "--reduced", "--steps", "1",
                      "--torch-device", "cpu", flag, value])
+
+
+def test_launcher_lm_forest_loads_the_forest(tmp_path):
+    """``--lm-forest`` no longer waits on a ROADMAP item: it loads the
+    campaign-fitted forest, so a missing file raises before any parameter
+    is drawn (the forest's admissions: ``tests/test_torch_campaign.py``)."""
+    with pytest.raises(FileNotFoundError):
+        launch.main(["--arch", "internlm2-1.8b", "--reduced", "--steps", "1",
+                     "--torch-device", "cpu", "--lm-forest",
+                     str(tmp_path / "missing.npz")])
 
 
 _ADMIT_ARGV = ["--arch", "internlm2-1.8b", "--reduced", "--steps", "1", "--batch", "2",
