@@ -34,12 +34,13 @@ Phases (any failure raises and the script exits non-zero):
    return, in f32 and with bf16 inputs; time kernel, plain version, a
    library yardstick and the bound with CUDA events (paged decode also at
    each token tile and split);
-5. serve — first, before the served weights are drawn (so that which
-   cells run out of memory does not depend on them), the campaign
+5. serve — first, while the served weights are drawn on the host and
+   before they reach the card (so that which cells run out of memory does
+   not depend on them), the campaign
    (``repro_torch.campaign``): a plan over stablelm-1.6b,
    internlm2-1.8b, qwen3-4b and mamba2-780m at full width, train B 1/2/4,
    prefill B 1/2/4/8 and decode B 8/32 at 2048 tokens under the registry's
-   ``h100`` spec, three quarters of it by the plan's seeded subsample plus
+   ``h100`` spec, half of it by the plan's seeded subsample plus
    the cells the later phases read, and stablelm-1.6b's cells on a 1x2
    mesh; the ``CampaignRunner`` measures every cell on the card (zero-filled inputs,
    CUDA-event Φ, ``max_memory_allocated`` Γ, the ledger traced on meta)
@@ -147,12 +148,35 @@ Phases (any failure raises and the script exits non-zero):
    against its plain version at every (batch size, convolution shape) the
    strategies run gave it and at every one the full paper set
    (``python -m repro_torch.bench.run``) gives it, seven families;
-11. a ``{"kernels": [...]}`` JSON line (the flash entry with the train
+11. benches — the auto-sharding planner and the beyond-paper benches
+   (``repro_torch.planner``, ``repro_torch.bench``): (a) full-width
+   internlm2-1.8b, train B 4 x S 2048, planned over 1, 2, 4 and 8 devices
+   through ``LayoutPlanner(CostEngine(EnsembleBackend([AnalyticalBackend(
+   lm_device=<this card>)])))`` — one meta trace for the base, every later
+   query a cache hit, no kernel launched and nothing allocated, 1x1x1's Φ
+   the base, 1x8x1 refused for batch divisibility, each table printed and
+   1x1x1's Φ and Γ beside the train phase's step and peak; (b)
+   ``engine_bench.planner_bench()`` over 256 ``tpu_v5e`` devices (0
+   traces); (c) the training launcher with ``--auto-mesh 4 --n-micro 8``
+   on the h100 spec: the plan, the one-card line and one step, whose loss
+   must match the train phase's first loss; (d) ``serve_bench`` at full
+   width: internlm2-1.8b drawn once and served by ``run`` (lockstep
+   against continuous), ``run_chunked`` and ``run_chaos``, paged-decode
+   launches held to decode steps x 24 around each, the reference's
+   ``check_thresholds`` conditions, the kernel against its plain version
+   on the served pool; (e) ``kernel_bench.run()`` (the tuner's model rows,
+   the plain versions timed, and each Hopper kernel's ``card_us`` row at
+   the bench's shapes against its plain version and its bound) and
+   ``engine_bench`` (``run``, ledger parity, calibration on the repo's
+   fixture, the reduced smoke campaign measured on the card into a fresh
+   ledger); each sub-phase's seconds;
+12. a ``{"kernels": [...]}`` JSON line (the flash entry with the train
    phase's ``train_*`` numbers, paged decode with the layers phase's
-   ``moe_*``, the admit phase's ``admit_*`` and the campaign phase's
-   ``campaign_*`` numbers, SSD with its
-   ``serve_launches``), the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+   ``moe_*``, the admit phase's ``admit_*``, the campaign phase's
+   ``campaign_*`` and the benches phase's ``serve_bench_*`` numbers, SSD
+   with its ``serve_launches``, each with ``kernel_bench_launches`` and
+   ``kernel_bench_ms`` from its ``card_us`` row), the card line again, and
+   last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it fails
 before printing any result.
@@ -217,24 +241,13 @@ def card_line() -> str:
 
 
 def time_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
-    """Median time of one call in ms, by CUDA events, with L2 flushed
-    (a 256 MB write) before every call: in a decode step each layer's
-    pool is cold."""
-    import torch
+    """``kernel_bench.card_time_ms``, the one timer behind the kernel
+    table: the median of ``reps`` calls after ``warmup``, by CUDA events,
+    with L2 flushed before every call (in a decode step each layer's pool
+    is cold)."""
+    from repro_torch.bench.kernel_bench import card_time_ms
 
-    for _ in range(warmup):
-        fn()
-    events = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return card_time_ms(fn, flush, reps=reps, warmup=warmup)
 
 
 def ptxas_summary(log: str) -> str:
@@ -461,6 +474,25 @@ def kernel_phase(flush) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def host_draw(cfg):
+    """Start ``init_params(cfg, 0)`` on the host in a thread and return a
+    future of (the CPU model, seconds).  numpy's generators and the copies
+    into the model release the interpreter lock, so the draw runs beside
+    the card's work on another core; the caller moves the result to the
+    card with ``.to("cuda")`` (the same values as a draw onto the card)."""
+    from repro_torch.models import transformer as T
+
+    def draw():
+        t0 = time.perf_counter()
+        model = T.init_params(cfg, 0, device="cpu")
+        return model, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(draw)
+    pool.shutdown(wait=False)
+    return future
+
+
 def serve_phase() -> dict:
     import torch
 
@@ -468,17 +500,20 @@ def serve_phase() -> dict:
     from repro_torch.kernels.paged_decode import ops
     from repro_torch.kernels.paged_decode.kernel import paged_decode_cuda
     from repro_torch.kernels.paged_decode.ref import paged_decode_ref
-    from repro_torch.models import transformer as T
     from repro_torch.serve import ContinuousConfig, ContinuousEngine, Request
 
     cfg = get_config("qwen3-4b")
+    # drawn on the host while the campaign runs, on the card only after it
+    # (so that which cells run out of memory does not depend on them)
+    drawing = host_draw(cfg)
     campaign = campaign_phase()
     t0 = time.perf_counter()
-    params = T.init_params(cfg, 0, device="cuda")
+    params, draw_s = drawing.result()
+    params = params.to("cuda")
     torch.cuda.synchronize()
     print(f"serve init_params(qwen3-4b, seed=0): {cfg.param_count() / 1e9:.3f}e9 "
-          f"parameters drawn with numpy on the host in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"parameters drawn with numpy on the host in {draw_s:.1f} s beside the "
+          f"campaign, on the card {time.perf_counter() - t0:.1f} s after it")
     scfg = ContinuousConfig(n_slots=8, max_len=2048, prefill_chunk=512)
 
     rng = np.random.default_rng(0)
@@ -915,10 +950,10 @@ CAMPAIGN_SEQ = 2048
 CAMPAIGN_BATCHES = {"train": (1, 2, 4), "prefill": (1, 2, 4, 8), "decode": (8, 32)}
 CAMPAIGN_MESH_ARCH = "stablelm-1.6b"    # its 1x2 row: the multi-device quarantine
 # the plan's own seeded subsample (stratified by arch) keeps the run near
-# four minutes and the script inside its time limit on a slow host; it
+# two minutes and the script inside its time limit on a slow host; it
 # always keeps the cells the serve admission queries (qwen3-4b prefill
 # B 1-8) and the one set beside the train phase (internlm2-1.8b train B 4)
-CAMPAIGN_SUBSAMPLE = 0.75
+CAMPAIGN_SUBSAMPLE = 0.5
 CAMPAIGN_REPEATS = dict(repeats=3, warmup=1)
 # the reference's record keys (src/repro/campaign/runner.py:186-208)
 CAMPAIGN_KEYS = ("arg_mb", "collective_bytes", "compile_s", "cost_classes",
@@ -1610,13 +1645,14 @@ def layers_mamba() -> dict:
     return {"serve_launches": tuner_launches, "main_launches": main_launches}
 
 
-def layers_moe() -> dict:
+def layers_moe(drawing) -> dict:
     """(3) Full-width qwen3-moe-30b-a3b, depth cut to ``MOE_LAYERS``,
     served by ``ContinuousEngine`` over the paged pool as the serve phase
     serves qwen3-4b; the paged decode kernel's launches counted and the
     kernel held against its plain version on the served inputs; the
     tuner's (groups, capacity_factor) for each MoE shape, and the share of
-    (token, expert) pairs dropped in one prefill."""
+    (token, expert) pairs dropped in one prefill.  ``drawing`` is the
+    :func:`host_draw` of the cut model, started with the layers phase."""
     import dataclasses
 
     import torch
@@ -1632,7 +1668,8 @@ def layers_moe() -> dict:
 
     cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=MOE_LAYERS)
     t0 = time.perf_counter()
-    params = T.init_params(cfg, 0, device="cuda")
+    params, draw_s = drawing.result()
+    params = params.to("cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     scfg = ContinuousConfig(n_slots=8, max_len=2048, prefill_chunk=512)
@@ -1668,7 +1705,8 @@ def layers_moe() -> dict:
     print(f"layers qwen3-moe-30b-a3b full width, {MOE_LAYERS} of 48 layers "
           f"({cfg.param_count() / 1e9:.4f}e9 parameters, {cfg.n_experts} experts top-"
           f"{cfg.experts_per_token} of d_ff {cfg.moe_d_ff_}) bf16 seed 0: init_params "
-          f"{init_s:.1f} s; ContinuousEngine n_slots=8 max_len=2048 prefill_chunk=512: "
+          f"{draw_s:.1f} s on the host beside the earlier parts, on the card {init_s:.1f} "
+          f"s after them; ContinuousEngine n_slots=8 max_len=2048 prefill_chunk=512: "
           f"{m['finished']}/{len(requests)} finished, lost={m['lost']}, decode_steps="
           f"{m['decode_steps']}, paged_decode launches={launches}, preemptions="
           f"{m['preemptions']}, prefill_chunks={m['prefill_chunks']}")
@@ -1786,12 +1824,19 @@ def layers_whisper() -> None:
 
 
 def layers_phase() -> dict:
+    import dataclasses
+
     import torch
 
+    from repro_torch.configs.registry import get_config
+
     t0 = time.perf_counter()
+    # qwen3-moe's weights are drawn on the host beside the first two parts
+    drawing = host_draw(dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                                            n_layers=MOE_LAYERS))
     layers_card_vs_cpu()
     mamba = layers_mamba()
-    moe = layers_moe()
+    moe = layers_moe(drawing)
     layers_whisper()
     torch.cuda.empty_cache()
     print(f"layers phase done in {time.perf_counter() - t0:.1f} s")
@@ -2069,7 +2114,7 @@ def train_full() -> dict:
     train_step_breakdown(trainer, state, batch, steady * 1e3)
     train_reference_seq(trainer, state, mem["base"])
     return {"steps": len(hist), "flash_launches": launches, "peak": peak,
-            "step_ms": steady * 1e3}
+            "step_ms": steady * 1e3, "first_loss": hist[0]["loss"]}
 
 
 def train_reference_seq(trainer, state, base: int) -> None:
@@ -3261,6 +3306,352 @@ def bench_phase(cnn: dict) -> dict:
     return {"launches": launches, "max_abs_err": worst}
 
 
+# ---------------------------------------------------------------------------
+# The auto-sharding planner, the launcher's --auto-mesh, and the serving,
+# kernel and engine benches (repro_torch.planner, repro_torch.bench)
+# ---------------------------------------------------------------------------
+
+PLAN_ARCH, PLAN_BATCH, PLAN_SEQ = "internlm2-1.8b", 4, 2048
+PLAN_DEVICES = (1, 2, 4, 8)
+# the launcher's first loss against the train phase's: the same seed-0
+# parameters and batch through the same kernels on one card, so the same
+# f32 loss up to a rounding
+LAUNCH_LOSS_RTOL = 1e-6
+SERVE_SPEEDUP_MIN = 1.0                  # the reference's check_thresholds gates
+CHUNKED_TTFT_STEPS_RATIO_MAX = 1.10
+CHAOS_GOODPUT_RATIO_MIN = 0.25
+ENGINE_PARITY_TOL = 1e-9
+LEDGER_PARITY_RTOL = 1e-9
+PLANNER_WALL_S_MAX = 1.0
+
+
+def benches_planner(trained: dict) -> dict:
+    """(a) Full-width internlm2-1.8b, train B 4 x S 2048, planned over 1, 2,
+    4 and 8 devices through ``LayoutPlanner(CostEngine(EnsembleBackend(
+    [AnalyticalBackend(lm_device=<this card>)])))``: one meta trace for the
+    base, every later query a cache hit, no kernel launched and nothing
+    allocated; 1x1x1's Φ is the base, 1x8x1 is refused for batch
+    divisibility; collectives priced from the spec's data-sheet ``ici_bw``
+    (no campaign cell measured a collective)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.engine import (AnalyticalBackend, CostEngine, EnsembleBackend,
+                                    from_torch_device)
+    from repro_torch.planner import LayoutPlanner
+
+    spec = from_torch_device()
+    backend = AnalyticalBackend(lm_device=spec)
+    cache = ROOT / "build" / "repro_torch" / "benches_planner_estimates.json"
+    cache.unlink(missing_ok=True)
+    engine = CostEngine(EnsembleBackend([backend]), cache=str(cache), device=spec)
+    planner = LayoutPlanner(engine, reduced=False)
+    shape = ShapeSpec("train_b4_s2048", PLAN_SEQ, PLAN_BATCH, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, alloc = kernel_counts(), torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    plans, walls = {}, {}
+    for n in PLAN_DEVICES:
+        t0 = time.perf_counter()
+        plans[n] = planner.plan(PLAN_ARCH, shape, n)
+        walls[n] = time.perf_counter() - t0
+        print(f"benches planner {PLAN_ARCH} B={PLAN_BATCH} S={PLAN_SEQ} over {n} "
+              f"device(s) in {walls[n]:.3f} s:")
+        for line in plans[n].table(top=None).splitlines():
+            print(f"benches   {line}")
+    torch.cuda.synchronize()
+    if kernel_counts() != counts or torch.cuda.memory_allocated() != alloc \
+            or torch.cuda.max_memory_allocated() != peak:
+        raise AssertionError("planning launched a kernel or allocated on the card: "
+                             f"{counts} -> {kernel_counts()}, {alloc} -> "
+                             f"{torch.cuda.memory_allocated()} bytes")
+    print(f"benches planner engine: {backend.traces} trace(s) in "
+          f"{backend.trace_seconds:.2f} s, engine hits {engine.hits}, misses "
+          f"{engine.misses}; kernel launches and memory unchanged")
+    if backend.traces != 1 or engine.hits != len(PLAN_DEVICES) - 1:
+        raise AssertionError(f"the base must be one trace and every later query a "
+                             f"cache hit: traces {backend.traces}, hits {engine.hits}")
+    one = plans[1].decision_for("1x1x1")
+    base = plans[1].base
+    if one is None or one.phi_ms != base["phi_ms"] or one.gamma_mb != base["gamma_mb"]:
+        raise AssertionError(f"1x1x1 is not the base: {one} against {base}")
+    refused = {r.layout.descriptor: r.reason for r in plans[8].refused}
+    if "not divisible" not in refused.get("1x8x1", ""):
+        raise AssertionError(f"1x8x1 must be refused for batch divisibility: {refused}")
+    fitted = any(p.meta["collective_coeff_fitted"] for p in plans.values())
+    print(f"benches planner collectives priced from {spec.name}'s ici_bw "
+          f"{spec.ici_bw / 1e9:.0f} GB/s (data sheet, one NVLink direction): "
+          f"collective coefficient fitted {fitted}; no campaign cell measured a "
+          f"collective (one card)")
+    if fitted:
+        raise AssertionError("a collective coefficient was fitted without a measurement")
+    print(f"benches planner 1x1x1: Φ {one.phi_ms:.2f} ms, Γ {one.gamma_mb / 1e3:.3f} GB "
+          f"against the train phase's median step {trained['step_ms']:.1f} ms and peak "
+          f"{trained['peak'] / 1e9:.3f} GB; chosen per count: " + ", ".join(
+              f"{n}: {p.chosen.layout.descriptor} Φ {p.chosen.phi_ms:.2f} ms Γ "
+              f"{p.chosen.gamma_mb / 1e3:.3f} GB" for n, p in plans.items()))
+    return {"plans": plans, "walls": walls}
+
+
+def benches_planner_bench() -> dict:
+    """(b) ``engine_bench.planner_bench()`` as the reference runs it: 256
+    ``tpu_v5e`` devices, a planted forest, the analytical trace trapped."""
+    from repro_torch.bench import engine_bench
+
+    out = engine_bench.planner_bench(lambda line: print(f"benches {line}"))
+    if out["compiles"] != 0 or not out["chosen_phi_ms"] <= out["default_phi_ms"] \
+            or not out["wall_s"] < PLANNER_WALL_S_MAX:
+        raise AssertionError(f"planner_bench: {out}")
+    return out
+
+
+def benches_launcher(trained: dict) -> dict:
+    """(c) The launcher with ``--auto-mesh 4 --n-micro 8`` on the h100 spec:
+    the plan printed, the one-card line, one step unsharded; its first loss
+    against the train phase's (same seed-0 parameters, same batch)."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from repro_torch.launch import train as launch
+
+    argv = ["--arch", PLAN_ARCH, "--batch", str(PLAN_BATCH), "--seq", str(PLAN_SEQ),
+            "--steps", "1", "--device", "h100", "--auto-mesh", "4", "--n-micro", "8"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = launch.main(argv)
+    secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"benches launcher | {line}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap = abs(summary["first_loss"] - trained["first_loss"]) / abs(trained["first_loss"])
+    print(f"benches launcher {' '.join(argv)}: {secs:.1f} s; first loss "
+          f"{summary['first_loss']:.6f} against the train phase's "
+          f"{trained['first_loss']:.6f}: relative difference {gap:.3e} (tol "
+          f"{LAUNCH_LOSS_RTOL})")
+    if "phi_ms" not in text or "needs 4 devices, host has 1 — plan reported, " \
+            "training unsharded" not in text:
+        raise AssertionError("the launcher did not print the plan and the one-card line")
+    if summary["steps"] != 1 or not gap <= LAUNCH_LOSS_RTOL:
+        raise AssertionError(f"the launcher's step disagrees: {summary}")
+    return {"seconds": secs, "gap": gap}
+
+
+def benches_serve(drawing) -> dict:
+    """(d) ``serve_bench`` at full width: internlm2-1.8b (24 layers, bf16,
+    seed 0; ``drawing``, a :func:`host_draw` started with the phase, so
+    that it runs beside the planner and the launcher) drawn once and
+    passed to ``run``, ``run_chunked`` and
+    ``run_chaos``; paged-decode launches counted around each and held to
+    the continuous engines' decode steps x layers (the tuner's counted
+    apart); the reference's threshold conditions, all gated; the kernel
+    against its plain version on the served pool."""
+    import gc
+
+    import torch
+
+    from repro_torch.bench import serve_bench
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.paged_decode import ops
+    from repro_torch.kernels.paged_decode.kernel import paged_decode_cuda
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+
+    cfg = get_config(PLAN_ARCH)
+    t0 = time.perf_counter()
+    params, draw_s = drawing.result()
+    params = params.to("cuda")
+    torch.cuda.synchronize()
+    print(f"benches serve init_params({PLAN_ARCH}, seed=0): {cfg.n_layers} layers, "
+          f"{cfg.param_count() / 1e9:.4f}e9 parameters, bf16, drawn on the host in "
+          f"{draw_s:.1f} s beside the planner and the launcher, on the card "
+          f"{time.perf_counter() - t0:.1f} s after them")
+    Path(serve_bench.TUNING_CACHE).unlink(missing_ok=True)
+    last, launch = {}, ops.paged_decode_cuda
+
+    def keep_last(*args, **kw):    # the served model's own kernel inputs
+        last["args"], last["kw"] = args, kw
+        return launch(*args, **kw)
+
+    results, launches, secs = {}, {}, {}
+    ops.paged_decode_cuda = keep_last
+    try:
+        for name, fn in (("run", serve_bench.run), ("chunked", serve_bench.run_chunked),
+                         ("chaos", serve_bench.run_chaos)):
+            torch.cuda.synchronize()
+            paged_decode_cuda.launches = 0
+            window = TunerWindow()
+            t0 = time.perf_counter()
+            results[name] = fn(lambda line: print(f"benches {line}"), device="cuda",
+                               cfg=cfg, params=params)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            launches[name] = paged_decode_cuda.launches
+            window.report(f"benches serve_bench {name}")
+            steps = results[name]["decode_steps_total"]
+            print(f"benches serve_bench {name}: {secs[name]:.1f} s, paged_decode "
+                  f"launches {launches[name]} (decode steps {steps} x {cfg.n_layers} = "
+                  f"{steps * cfg.n_layers})")
+            if not launches[name] == steps * cfg.n_layers > 0:
+                raise AssertionError(f"serve_bench {name}: {launches[name]} launches, "
+                                     f"{steps} decode steps")
+    finally:
+        ops.paged_decode_cuda = launch
+
+    srv, chk, chaos = results["run"], results["chunked"], results["chaos"]
+    # At max_len 64 and 128 the card tuner picks a block of the whole
+    # window: ``run``'s engine fits it to the pool (serve.kv_cache.
+    # fit_block_size; else 2 blocks for 4 slots), and the chunked row keeps
+    # it (its engines compare streams) while the engine prefills a short
+    # prompt at 16 tokens, not the block (else a stall of 128).
+    gates = {
+        "a pool block for every slot": srv["usable_blocks"] >= serve_bench.N_SLOTS,
+        "continuous req/s >= lockstep": srv["speedup"] >= SERVE_SPEEDUP_MIN,
+        "goodput continuous >= lockstep": srv["goodput_continuous"] >= srv["goodput_lockstep"],
+        "finite percentiles": all(np.isfinite(srv[k]) and srv[k] > 0 for k in
+                                  ("ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+                                   "tpot_p99_ms")),
+        "paged pool < dense cache": srv["kv_bytes"] < srv["kv_dense_bytes"],
+        "chunked streams equal": chk["streams_equal"],
+        "chunked prefill chunked": chk["chunked"]["prefill_chunks"] > 0,
+        "no decode stall": chk["chunked"]["max_decode_stall_steps"] == 0,
+        "chunked lost nothing": chk["chunked"]["lost"] == chk["unchunked"]["lost"] == 0,
+        "stall chunked < unchunked": (chk["chunked"]["max_prefill_stall_tokens"]
+                                      < chk["unchunked"]["max_prefill_stall_tokens"]),
+        "stall bound one chunk": (chk["chunked"]["max_prefill_stall_tokens"]
+                                  <= serve_bench.PREFILL_CHUNK),
+        "step-TTFT p99 <= 1.10x": chk["ttft_steps_ratio"] <= CHUNKED_TTFT_STEPS_RATIO_MAX,
+        "kernel touches < gather": (0 < chk["chunked"]["kv_touched_bytes"]
+                                    < chk["chunked"]["kv_gathered_bytes"]),
+        "chaos lost nothing": chaos["chaos_lost"] == chaos["baseline_lost"] == 0,
+        "chaos all terminal": chaos["chaos_terminal"] == chaos["n_requests"],
+        "chaos faults fired": (chaos["faults_alloc_fired"] > 0
+                               and chaos["faults_backend_fired"] > 0),
+        "chaos pool conserved": chaos["pool_conserved"],
+        "chaos goodput >= 0.25 x fault-free": chaos["goodput_ratio"] >= CHAOS_GOODPUT_RATIO_MIN,
+    }
+    print(f"benches serve_bench full-width {PLAN_ARCH}: lockstep {srv['lockstep_rps']:.3f} "
+          f"req/s, continuous {srv['continuous_rps']:.3f} req/s ({srv['speedup']:.2f}x), "
+          f"goodput {srv['goodput_lockstep']:.3f} / {srv['goodput_continuous']:.3f} req/s, "
+          f"TTFT p50/p99 {srv['ttft_p50_ms']:.1f}/{srv['ttft_p99_ms']:.1f} ms, TPOT "
+          f"p50/p99 {srv['tpot_p50_ms']:.2f}/{srv['tpot_p99_ms']:.2f} ms, "
+          f"{srv['tokens_out']} tokens over {srv['decode_steps']} decode steps "
+          f"(block {srv['block_size']}, {srv['usable_blocks']} usable pool blocks); "
+          f"chunked block {chk['chunked']['block_size']}, step-TTFT ratio "
+          f"{chk['ttft_steps_ratio']:.3f}, stall tokens "
+          f"{chk['chunked']['max_prefill_stall_tokens']} vs "
+          f"{chk['unchunked']['max_prefill_stall_tokens']} (chunk "
+          f"{serve_bench.PREFILL_CHUNK}); chaos "
+          f"{chaos['chaos_finished']} finished {chaos['chaos_refused']} refused "
+          f"{chaos['chaos_expired']} expired, goodput ratio {chaos['goodput_ratio']:.2f}")
+    failed = [k for k, ok in gates.items() if not ok]
+    print(f"benches serve_bench gates (benchmarks/check_thresholds.py:194-301): "
+          f"{len(gates) - len(failed)}/{len(gates)} held" + (f"; failed {failed}" if failed else ""))
+    if failed:
+        raise AssertionError(f"serve_bench gates failed: {failed}")
+
+    q, kp, vp, bt, cl = last["args"]
+    got = paged_decode_cuda(q, kp, vp, bt, cl, **last["kw"])
+    want = paged_decode_ref(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and got.shape == q.shape):
+        raise AssertionError("paged_decode output on the served pool not finite")
+    err = float((got.float() - want.float()).abs().max())
+    print(f"benches serve_bench paged_decode on the served pool (last layer, last step, "
+          f"cache_len={cl.tolist()}): max_abs_err={err:.3e} (tol {TOL['bfloat16']})")
+    if not err <= TOL["bfloat16"]:
+        raise AssertionError(f"paged_decode disagrees on the served pool: {err}")
+    del params, last, q, kp, vp, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": sum(launches.values()), "max_abs_err": err, "seconds": secs,
+            "results": results}
+
+
+def benches_kernel_engine() -> dict:
+    """(e) ``kernel_bench.run()`` (model rows, ``ref_us`` rows and the four
+    ``card_us`` rows) and ``engine_bench`` (``run``,
+    ``ledger_breakdown_parity``, ``calibration_accuracy`` and
+    ``campaign_accuracy`` on a fresh ledger), with the reference's gates."""
+    import torch
+
+    from repro_torch.bench import engine_bench, kernel_bench
+
+    def out(line):
+        print(f"benches {line}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kern = kernel_bench.run(out)
+    secs = {"kernel_bench": time.perf_counter() - t0}
+    for name in ("conv_mm", "flash_attention", "ssm_scan", "moe_dispatch", "paged_decode"):
+        if not kern[name]["tuned_us"] <= kern[name]["default_us"] * (1 + 1e-9):
+            raise AssertionError(f"kernel_bench {name}: tuned model over default")
+    if not (kern["paged_decode"]["vs_gather"] >= 1.0 and kern["serve_kv_joint"]["aligned"]
+            and (kern["second_call_hits"], kern["second_call_misses"]) == (6, 0)):
+        raise AssertionError(f"kernel_bench model rows: {kern}")
+    for name, row in kern["card"].items():     # within tolerance, or run() raised
+        if row["launches"] != 35 * row["configs"]:
+            raise AssertionError(f"kernel_bench card row {name}: {row['launches']} "
+                                 f"launches for {row['configs']} configs x 35")
+
+    t0 = time.perf_counter()
+    eng = engine_bench.run(out, device="cuda")
+    secs["engine_bench"] = time.perf_counter() - t0
+    print(f"benches engine_bench: batched/scalar max_dev {eng['max_dev']:.3e} (tol "
+          f"{ENGINE_PARITY_TOL}), ledger parity {eng['ledger_parity_dev']:.3e} (tol "
+          f"{LEDGER_PARITY_RTOL}); calibration MAPEs are against the repo's "
+          f"host-measured fixture benchmarks/cache/cnn_profile.json, not this card")
+    if not (eng["max_dev"] <= ENGINE_PARITY_TOL
+            and eng["ledger_parity_dev"] <= LEDGER_PARITY_RTOL
+            and eng["ledger_energy_parity_dev"] <= LEDGER_PARITY_RTOL
+            and eng["phi_mape_cal"] <= eng["phi_mape_uncal"]):
+        raise AssertionError(f"engine_bench gates: {eng}")
+    ledger = ROOT / "build" / "repro_torch" / "benches_campaign_smoke.jsonl"
+    ledger.unlink(missing_ok=True)
+    counts = kernel_counts()
+    window = TunerWindow()
+    t0 = time.perf_counter()
+    camp = engine_bench.campaign_accuracy(out, ledger_path=str(ledger), device="cuda")
+    secs["campaign_accuracy"] = time.perf_counter() - t0
+    window.report("benches campaign_accuracy")
+    print(f"benches campaign_accuracy: {camp['measured']} reduced smoke cells measured "
+          f"on the card in {secs['campaign_accuracy']:.1f} s; forest held-out Φ / Γ MAPE "
+          f"{camp.get('forest_phi_mape', float('nan')):.4f} / "
+          f"{camp.get('forest_gamma_mape', float('nan')):.4f}")
+    if camp["measured"] != 16 or "forest_phi_mape" not in camp \
+            or camp.get("breakdown_parity_dev", 1.0) > LEDGER_PARITY_RTOL:
+        raise AssertionError(f"campaign_accuracy: {camp}")
+    if {n: c[0] for n, c in kernel_counts().items()} != {n: c[0] for n, c in counts.items()}:
+        raise AssertionError("the smoke campaign's measured steps launched a kernel")
+    return {"kernel": kern, "engine": eng, "campaign": camp, "seconds": secs}
+
+
+def benches_phase(trained: dict) -> dict:
+    """The planner, the launcher's ``--auto-mesh`` and the three benches
+    (see the module docstring, phase 11)."""
+    from repro_torch.configs.registry import get_config
+
+    t0 = time.perf_counter()
+    drawing = host_draw(get_config(PLAN_ARCH))
+    secs = {}
+    for name, fn in (("planner", lambda: benches_planner(trained)),
+                     ("planner_bench", benches_planner_bench),
+                     ("launcher", lambda: benches_launcher(trained)),
+                     ("serve_bench", lambda: benches_serve(drawing)),
+                     ("kernel_engine_bench", benches_kernel_engine)):
+        t1 = time.perf_counter()
+        secs[name] = (fn(), time.perf_counter() - t1)
+        print(f"benches {name} done in {secs[name][1]:.1f} s")
+    print(f"benches phase done in {time.perf_counter() - t0:.1f} s")
+    return {name: r for name, (r, _) in secs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3339,6 +3730,12 @@ def main() -> int:
     cnn = cnn_phase()
     engine = engine_phase(cnn)
     bench = bench_phase(cnn)
+    benches = benches_phase(trained)
+    card = benches["kernel_engine_bench"]["kernel"]["card"]
+
+    def kernel_bench_fields(name: str) -> dict:
+        return {"kernel_bench_launches": card[name]["launches"],
+                "kernel_bench_ms": card[name]["us"] / 1e3}
 
     kernels = [{
         "name": "paged_decode",
@@ -3354,6 +3751,9 @@ def main() -> int:
         "admit_max_abs_err": served["admit"]["max_abs_err"],
         "campaign_launches": served["campaign"]["launches"],
         "campaign_max_abs_err": served["campaign"]["max_abs_err"],
+        "serve_bench_launches": benches["serve_bench"]["launches"],
+        "serve_bench_max_abs_err": benches["serve_bench"]["max_abs_err"],
+        **kernel_bench_fields("paged_decode"),
     }, {
         "name": "conv_mm",
         "route": "cuda",
@@ -3364,6 +3764,7 @@ def main() -> int:
         "bench_launches": bench["launches"],
         "max_abs_err": max(cnn["max_abs_err"], bench["max_abs_err"]),
         **conv_timing,
+        **kernel_bench_fields("conv_mm"),
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -3377,6 +3778,7 @@ def main() -> int:
         "train_plain_ms": trained["train_plain_ms"],
         "train_bound_ms": trained["train_bound_ms"],
         "train_library_ms": trained["train_library_ms"],
+        **kernel_bench_fields("flash_attention"),
     }, {
         "name": "ssd_chunk",
         "route": "cuda",
@@ -3385,6 +3787,7 @@ def main() -> int:
         "launches": tuned["launches"]["ssm_scan"],
         **ssd_timing,
         "serve_launches": layered["serve_launches"],
+        **kernel_bench_fields("ssd_chunk"),
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"device {card_line()}")

@@ -1,18 +1,20 @@
-"""Entry point of the paper runners, one per paper table or figure
-(port of ``benchmarks/run.py``).
+"""Entry point of the benchmarks: one runner per paper table or figure,
+and the kernel and engine benches (port of ``benchmarks/run.py``).
 
-Prints ``name,value,derived`` CSV lines.  All runners read the port's
-profiling cache (``--cache``, default ``build/repro_torch/bench/
+Prints ``name,value,derived`` CSV lines.  All paper runners read the
+port's profiling cache (``--cache``, default ``build/repro_torch/bench/
 cnn_profile.json``; ``repro_torch.bench.collect_cnn_data`` fills it, and
-missing points are profiled lazily on the card).  On the card each runner
-also prints ``<name>/card_s`` with the datapoints it profiled and the
-``conv_mm`` launches it caused.
+missing points are profiled lazily on the card).  On the card each paper
+runner also prints ``<name>/card_s`` with the datapoints it profiled and
+the ``conv_mm`` launches it caused.  ``kernels`` (``kernel_bench.run``)
+and ``engine`` (``engine_bench.run`` then ``planner_bench``) run on
+``--device`` (default ``cuda``; ``cpu`` runs their plain paths).
 
     PYTHONPATH=src python -m repro_torch.bench.run [--only fig3,fig4] [--skip-slow]
+    PYTHONPATH=src python -m repro_torch.bench.run --only kernels,engine [--device cpu]
 
-The reference's ``roofline``, ``kernels`` and ``engine`` benches are not
-ported yet; ``--only`` with one of them stops with the ROADMAP item it
-waits for.
+The reference's ``roofline`` bench is not ported yet; ``--only roofline``
+stops with the ROADMAP item it waits for.
 """
 
 from __future__ import annotations
@@ -27,11 +29,6 @@ import traceback
 NOT_PORTED = {
     "roofline": "ROADMAP queue 1 item 7c (launch/dryrun, which writes the "
                 "dry-run reports it reads)",
-    "kernels": "ROADMAP queue 1 item 1i (kernel_bench, reading the card's "
-               "spec where the reference reads launch/mesh's TPU table)",
-    "engine": "ROADMAP queue 1 item 1i (the engine_bench port: run, "
-              "calibration_accuracy, ledger_breakdown_parity, "
-              "campaign_accuracy) and item 7b (planner_bench)",
 }
 
 
@@ -43,10 +40,17 @@ def main(argv=None) -> None:
                     help="skip benches that may profile new configs")
     ap.add_argument("--cache", default=None, help="the profiling cache")
     ap.add_argument("--sub-cache", default=None, help="Table 2's sub-network cache")
+    ap.add_argument("--device", default="cuda",
+                    help="where kernels and engine run: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    from . import (dnnmem_comparison, fig3_same_network, fig4_basis,
-                   strategy_variation, table2_case_study, trainset_sweep)
+    from . import (dnnmem_comparison, engine_bench, fig3_same_network, fig4_basis,
+                   kernel_bench, strategy_variation, table2_case_study,
+                   trainset_sweep)
+
+    def engine(**_):
+        engine_bench.run(device=args.device)
+        engine_bench.planner_bench()
 
     benches = {
         "fig3": fig3_same_network.run,            # Fig. 3
@@ -55,6 +59,8 @@ def main(argv=None) -> None:
         "dnnmem": dnnmem_comparison.run,          # §6.2.1
         "strategies": strategy_variation.run,     # §6.2 (100 strategies)
         "table2": table2_case_study.run,          # Table 2 / §6.4
+        "kernels": lambda **_: kernel_bench.run(device=args.device),  # kernel μ-bench
+        "engine": engine,                         # batched CostBackend API, planner
     }
     slow = {"strategies", "table2"}
     selected = (args.only.split(",") if args.only else list(benches))

@@ -22,14 +22,25 @@ safety property).  Estimates are cached on disk (``--estimate-cache``), so
 re-launching the same cell readmits with no new trace.  Then it warms the
 kernel tuning cache for the cell (``warm_autotune(stages=("train",))``).
 
-``--auto-mesh`` and ``--n-micro`` wait on the planner (ROADMAP.md,
-Queue 1, item 7b); each raises ``NotImplementedError``.
+``--auto-mesh N`` asks the planner (``repro_torch.planner``) for the
+cheapest data × model layout of N devices (``max_pipe=1``: the trainer
+has no pipeline schedule; ``--n-micro`` feeds its bubble model) through
+the same engine, prints the ranked table before any parameter is drawn,
+raises ``RuntimeError`` naming every refusal when no layout is runnable,
+and reports the chosen layout's costs in the admission ``info``
+(``auto_mesh``).  Building the chosen mesh waits for ROADMAP queue 1
+item 7c, so: a layout of more devices than are visible is reported and
+training runs unsharded, as in the reference on a short host; a layout
+of one device trains unsharded; a layout of N > 1 devices that are all
+visible raises ``NotImplementedError`` before any draw.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+
+import torch
 
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.configs.registry import ARCH_IDS, get_config
@@ -40,10 +51,8 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 __all__ = ["main"]
 
-_WAITS_ON = {
-    "auto_mesh": "the auto-sharding planner is not ported yet (ROADMAP.md, Queue 1, item 7b)",
-    "n_micro": "the auto-sharding planner is not ported yet (ROADMAP.md, Queue 1, item 7b)",
-}
+_MESH_TODO = ("building a sharded mesh waits for ROADMAP.md, Queue 1, item 7c "
+              "(torch.distributed DeviceMesh and DTensor placements)")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -85,23 +94,27 @@ def _parser() -> argparse.ArgumentParser:
                          "analytical trace only for cells the forest cannot "
                          "answer")
     ap.add_argument("--auto-mesh", type=int, default=None, metavar="N",
-                    help="planner-chosen layout of N devices (not ported yet: item 7b)")
-    ap.add_argument("--n-micro", type=int, default=None,
-                    help="the planner's microbatches (not ported yet: item 7b)")
+                    help="let the auto-sharding planner (repro_torch.planner) "
+                         "pick the cheapest data×model layout of N devices "
+                         "for this cell (max_pipe=1: the trainer has no "
+                         "pipeline schedule); with fewer devices visible it "
+                         "reports the plan and trains unsharded")
+    ap.add_argument("--n-micro", type=int, default=8,
+                    help="microbatches per step assumed by the planner's "
+                         "pipeline-bubble model")
     return ap
 
 
-def _admission(args):
-    """The admission callable the ``Trainer`` asks before it builds the
-    step, or None when no admission flag is given.  A refusal raises
-    :class:`PlacementRefused` (a ``RuntimeError``, "admission denied")."""
+def _engine(args):
+    """The cost engine admission and the planner ask, or None when no
+    admission or planner flag is given."""
     if (args.memory_budget_gb is None and args.device is None
-            and args.lm_forest is None and args.energy_budget_j is None):
+            and args.lm_forest is None and args.energy_budget_j is None
+            and args.auto_mesh is None):
         return None
     from repro_torch.engine import (
         AnalyticalBackend,
         CostEngine,
-        CostQuery,
         EnsembleBackend,
         ForestBackend,
         resolve_device,
@@ -114,8 +127,47 @@ def _admission(args):
 
         chain.append(ForestBackend(lm=LMForest.load(args.lm_forest)))
     chain.append(AnalyticalBackend(reduced=args.reduced, lm_device=device))
-    engine = CostEngine(EnsembleBackend(chain), cache=args.estimate_cache,
-                        device=device)
+    return CostEngine(EnsembleBackend(chain), cache=args.estimate_cache,
+                      device=device)
+
+
+def _auto_mesh(args, engine, shape):
+    """The planner's ranked layouts of ``--auto-mesh`` devices, printed;
+    an empty plan raises naming every refusal."""
+    from repro_torch.planner import LayoutPlanner
+
+    plan = LayoutPlanner(engine, reduced=args.reduced).plan(
+        args.arch, shape, args.auto_mesh, max_pipe=1, n_micro=args.n_micro)
+    print(plan.table(top=5))
+    if plan.chosen is None:
+        raise RuntimeError(
+            f"auto-mesh: no runnable layout of {args.auto_mesh} devices for "
+            f"{args.arch} × {shape.name}; refused: "
+            + "; ".join(f"{r.layout.descriptor}: {r.reason}" for r in plan.refused))
+    chosen = plan.chosen.layout
+    torch_device = torch.device(args.torch_device)
+    visible = torch.cuda.device_count() if torch_device.type == "cuda" else 1
+    if chosen.n_devices > visible:
+        print(f"auto-mesh: {chosen.descriptor} needs {chosen.n_devices} devices, "
+              f"host has {visible} — plan reported, training unsharded")
+    elif chosen.n_devices == 1:
+        print(f"auto-mesh: {chosen.descriptor} is one device — training unsharded")
+    else:
+        raise NotImplementedError(
+            f"auto-mesh: {chosen.descriptor} ({chosen.data}-way data × "
+            f"{chosen.model}-way model) over {visible} visible devices: {_MESH_TODO}")
+    return plan
+
+
+def _admission(args, engine, plan):
+    """The admission callable the ``Trainer`` asks before it builds the
+    step, or None without an engine.  A refusal raises
+    :class:`PlacementRefused` (a ``RuntimeError``, "admission denied")."""
+    if engine is None:
+        return None
+    from repro_torch.engine import CostQuery
+
+    device = engine.device if args.device else None
 
     def admission(cfg, shape):
         ok, info = engine.admit(
@@ -130,6 +182,12 @@ def _admission(args):
         info["predicted_energy_j"] = info["energy_j"]
         if device is not None:
             info["device"] = device.name
+        if plan is not None:
+            # the planner-chosen layout's predicted costs, reported at
+            # admission beside the single-device gate
+            c = plan.chosen
+            info["auto_mesh"] = {"layout": c.layout.descriptor, "phi_ms": c.phi_ms,
+                                 "gamma_mb": c.gamma_mb, "energy_j": c.energy_j}
         if not ok:
             raise PlacementRefused(f"admission denied: {info}", info)
         return ok, info
@@ -139,19 +197,17 @@ def _admission(args):
 
 def main(argv: list[str] | None = None) -> dict:
     args = _parser().parse_args(argv)
-    for flag, reason in _WAITS_ON.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: {reason}")
-
     cfg = get_config(args.arch, reduced=args.reduced)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
+    engine = _engine(args)
+    plan = _auto_mesh(args, engine, shape) if args.auto_mesh is not None else None
     opt = OptimizerConfig(kind="adamw", lr=args.lr, warmup_steps=10,
                           total_steps=max(args.steps, 100))
     tcfg = TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                          grad_compression=args.grad_compression)
     # admission runs in the Trainer's constructor: a refusal raises before
     # any parameter is drawn
-    trainer = Trainer(cfg, shape, opt, tcfg, admission=_admission(args),
+    trainer = Trainer(cfg, shape, opt, tcfg, admission=_admission(args, engine, plan),
                       device=args.torch_device)
 
     # Pre-tune kernel block sizes for this cell (a meta-device trace): the

@@ -15,7 +15,7 @@ from repro_torch.serve.continuous import ContinuousConfig, ContinuousEngine
 from repro_torch.serve.engine import ServeConfig, ServeEngine, pad_ragged
 from repro_torch.serve.faults import FAULT_KINDS, Fault, FaultInjected, FaultPlan
 from repro_torch.serve.health import STATIC_LEVEL, FailoverChain
-from repro_torch.serve.kv_cache import PagedKVCache, resolve_block_size
+from repro_torch.serve.kv_cache import PagedKVCache, fit_block_size, resolve_block_size
 from repro_torch.serve.request import TERMINAL_STATES, Request, RequestState
 from repro_torch.serve.scheduler import (
     Decision,
@@ -43,6 +43,7 @@ __all__ = [
     "ServeEngine",
     "ServeSLO",
     "TERMINAL_STATES",
+    "fit_block_size",
     "pad_ragged",
     "resolve_block_size",
 ]

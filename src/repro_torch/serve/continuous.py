@@ -18,7 +18,15 @@ Slots join and leave the running batch every step:
 * the KV lands in the block pool (:class:`PagedKVCache`) and grows
   incrementally: admission allocates only the blocks the prefill needs,
   and decode allocates one more each time a request's write position
-  crosses a block boundary;
+  crosses a block boundary; a block size left to the tuner is fitted to
+  the pool (:func:`~repro_torch.serve.kv_cache.fit_block_size`); a
+  prompt of at most ``SMALL_PROMPT`` tokens is prefilled at its own power
+  of two rather than padded to the block, and with chunked prefill a
+  prompt whose padded whole prefill would be wider than the chunk is
+  chunked too, so that no prefill step is wider than one chunk.  These
+  depart from the reference, whose engine leaves slots idle and stalls
+  running slots for a whole block where the tuner picks a block of the
+  window;
 * EOS / token-budget completion frees the slot and its blocks at once.
 
 Mispredicted load is a handled event: **preemption** (the youngest
@@ -59,7 +67,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serve.health import FailoverChain
-from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.serve.kv_cache import PagedKVCache, fit_block_size, resolve_block_size
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.scheduler import (
     Decision,
@@ -69,6 +77,10 @@ from repro_torch.serve.scheduler import (
 )
 
 __all__ = ["ContinuousConfig", "ContinuousEngine"]
+
+
+# the smallest block of the serve_kv model
+SMALL_PROMPT = 16
 
 
 def _next_pow2(n: int) -> int:
@@ -85,7 +97,7 @@ class ContinuousConfig:
     temperature: float = 0.0
     eos_id: int = 1
     seed: int = 0
-    block_size: int | None = None     # None → serve_kv tiling default
+    block_size: int | None = None     # None → the tuner's, fit_block_size
     pool_tokens: int | None = None    # None → n_slots·max_len / 2 budget
     prefill_chunk: int | None = None  # chunked prefill: max tokens prefilled
     #                                   per engine step (None = whole prompt)
@@ -117,9 +129,14 @@ class ContinuousEngine:
         self.faults = faults
         self._clock = clock or time.perf_counter
         self._skew_s = 0.0                 # virtual stall from "slow" faults
+        block_size = scfg.block_size
+        if block_size is None:
+            block_size = fit_block_size(
+                resolve_block_size(cfg, n_slots=scfg.n_slots, max_len=scfg.max_len),
+                n_slots=scfg.n_slots, max_len=scfg.max_len, pool_tokens=scfg.pool_tokens)
         self.kv = PagedKVCache(
             cfg, n_slots=scfg.n_slots, max_len=scfg.max_len,
-            block_size=scfg.block_size, pool_tokens=scfg.pool_tokens,
+            block_size=block_size, pool_tokens=scfg.pool_tokens,
             faults=faults, device=self.device)
         self.scheduler = None
         self.failover = None
@@ -362,16 +379,24 @@ class ContinuousEngine:
         req.slot = slot
         self.slots[slot] = req
         chunk = self.scfg.prefill_chunk
-        if chunk is not None and S > chunk:
+        bs = self.kv.block_size
+        # A prompt of at most SMALL_PROMPT tokens pads to its own power of
+        # two (at least min(block, SMALL_PROMPT)), a longer one to the
+        # block; the reference pads every prompt to the block.
+        pad_to = min(bs, SMALL_PROMPT) if S <= SMALL_PROMPT else bs
+        width = min(_next_pow2(max(S, pad_to)), -(-self.scfg.max_len // bs) * bs)
+        if chunk is not None and width > chunk:
             # chunked prefill: occupy the slot now, feed the prompt in
-            # ``chunk``-sized pieces interleaved with decode steps
+            # ``chunk``-sized pieces interleaved with decode steps.  A
+            # prompt within the chunk goes this way too when its padded
+            # whole prefill would be wider than the chunk (the reference
+            # tests S > chunk, and stalls running slots for a block wider
+            # than the chunk)
             req.prefill_pos = 0
             self._prefilling[slot] = True
             self._cache_len[slot] = 0
             self._last_tok[slot] = 0
             return
-        bs = self.kv.block_size
-        width = min(_next_pow2(max(S, bs)), -(-self.scfg.max_len // bs) * bs)
         if others_decodable:
             self.max_prefill_stall_tokens = max(
                 self.max_prefill_stall_tokens, width)

@@ -10,7 +10,11 @@ single-token write) at it.
 
 The block size is resolved through the kernel autotuner's ``serve_kv``
 tiling model, which prices each candidate through the ``paged_decode``
-kernel's own cost model (joint resolution), as in the reference.
+kernel's own cost model (joint resolution), as in the reference.  The
+continuous engine then fits the tuner's pick to its pool
+(:func:`fit_block_size`), which the reference does not: under a TPU or
+GPU spec the model picks a block of a whole ``max_len`` at small
+windows, which leaves the default pool fewer blocks than slots.
 
 Prefill packing: prompts prefill through the dense path (at a bucketed
 length, left-padded), then ``pack_prefill`` rolls the padding off, chops
@@ -26,11 +30,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.autotune import tuned_config
+from repro_torch.kernels.serve_kv.tiling import _BLOCK_SEEDS, shape_key
 from repro_torch.kernels.serve_kv.tiling import default as _default_config
-from repro_torch.kernels.serve_kv.tiling import shape_key
 from repro_torch.models import transformer as T
 
-__all__ = ["PagedKVCache", "resolve_block_size"]
+__all__ = ["PagedKVCache", "fit_block_size", "pool_tokens_for", "resolve_block_size"]
 
 
 def resolve_block_size(cfg: ArchConfig, *, n_slots: int, max_len: int,
@@ -49,6 +53,28 @@ def resolve_block_size(cfg: ArchConfig, *, n_slots: int, max_len: int,
     return int(config["block_size"])
 
 
+def pool_tokens_for(n_slots: int, max_len: int, pool_tokens: int | None = None) -> int:
+    """The pool's token budget: ``pool_tokens`` as given, else the expected
+    steady-state occupancy, half the dense footprint."""
+    if pool_tokens is not None:
+        return int(pool_tokens)
+    return max((int(n_slots) * int(max_len)) // 2, int(max_len))
+
+
+def fit_block_size(block_size: int, *, n_slots: int, max_len: int,
+                   pool_tokens: int | None = None) -> int:
+    """Halve the tuner's ``block_size`` until the pool holds a block for
+    every slot, stopping at the ``serve_kv`` model's smallest candidate.
+    A pool of fewer blocks than slots leaves slots idle under any load: at
+    a block of ``max_len`` the default pool has ``n_slots / 2`` blocks.
+    Not in the reference, whose engine takes the tuner's pick as it is."""
+    pool = pool_tokens_for(n_slots, max_len, pool_tokens)
+    bs = max(1, int(block_size))
+    while bs > _BLOCK_SEEDS[0] and bs % 2 == 0 and -(-max(pool, bs) // bs) < n_slots:
+        bs //= 2
+    return bs
+
+
 class PagedKVCache:
     def __init__(self, cfg: ArchConfig, *, n_slots: int, max_len: int,
                  block_size: int | None = None, pool_tokens: int | None = None,
@@ -61,10 +87,7 @@ class PagedKVCache:
             block_size = resolve_block_size(cfg, n_slots=n_slots,
                                             max_len=max_len)
         self.block_size = bs = max(1, int(block_size))
-        if pool_tokens is None:
-            # expected steady-state occupancy — half the dense footprint
-            pool_tokens = max((self.n_slots * self.max_len) // 2,
-                              self.max_len)
+        pool_tokens = pool_tokens_for(self.n_slots, self.max_len, pool_tokens)
         # An explicit pool_tokens is honoured as given: requests whose
         # lifetime footprint cannot fit the pool are the engine's job to
         # REFUSE with a pool-capacity reason.

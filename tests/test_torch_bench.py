@@ -213,7 +213,7 @@ def test_runner_default_device_raises_without_cuda(name, monkeypatch, tmp_path):
     assert not (tmp_path / "c.json").exists()
 
 
-@pytest.mark.parametrize("name", ["roofline", "kernels", "engine"])
+@pytest.mark.parametrize("name", ["roofline"])
 def test_run_names_the_roadmap_item_of_a_bench_not_ported(name, capsys):
     with pytest.raises(SystemExit):
         bench_run.main(["--only", f"dnnmem,{name}"])

@@ -72,6 +72,7 @@ def _entry_points():
     from repro_torch.campaign import __main__ as campaign_cli
     from repro_torch.campaign.runner import measure_cell
     from repro_torch.launch.lowering import compile_cell
+    from repro_torch.bench import engine_bench, kernel_bench, serve_bench
 
     cfg = get_config("qwen3-4b", reduced=True)
     cell = CampaignCell("qwen3-4b", ShapeSpec("t", 16, 2, "train"))
@@ -99,6 +100,13 @@ def _entry_points():
         "compile_cell": lambda: compile_cell(cfg, cell.shape),
         "campaign run": lambda: campaign_cli.main(
             ["run", "--plan", str(ROOT / "missing-plan.json"), "--ledger", "/dev/null"]),
+        "kernel_bench.run": lambda: kernel_bench.run(lambda *_: None),
+        "engine_bench.run": lambda: engine_bench.run(lambda *_: None),
+        "engine_bench.calibration_accuracy": lambda: engine_bench.calibration_accuracy(
+            lambda *_: None),
+        "serve_bench.run": lambda: serve_bench.run(lambda *_: None),
+        "serve_bench.run_chunked": lambda: serve_bench.run_chunked(lambda *_: None),
+        "serve_bench.run_chaos": lambda: serve_bench.run_chaos(lambda *_: None),
     }
 
 
@@ -110,7 +118,11 @@ def _entry_points():
                                   "ProfilerBackend", "train_state_from_jax",
                                   "Trainer", "TokenPipeline", "launch.train",
                                   "CampaignRunner", "measure_cell", "compile_cell",
-                                  "campaign run"])
+                                  "campaign run", "kernel_bench.run",
+                                  "engine_bench.run",
+                                  "engine_bench.calibration_accuracy",
+                                  "serve_bench.run", "serve_bench.run_chunked",
+                                  "serve_bench.run_chaos"])
 def test_default_device_raises_without_cuda(monkeypatch, name):
     call = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -368,4 +380,38 @@ def test_new_modules_of_the_campaign_slice_are_covered():
     registry = importlib.import_module("repro_torch.configs.registry")
     assert callable(registry.cell_supported)
     launch = importlib.import_module("repro_torch.launch.train")
-    assert "lm_forest" not in launch._WAITS_ON
+    assert not hasattr(launch, "_WAITS_ON")       # no launcher flag waits on an item
+
+
+def test_new_modules_of_the_planner_and_bench_slice_are_covered():
+    """The planner and bench slice (queue 1 items 7b and 1i): the nine
+    modules it adds or changes, named so that a rename cannot drop them;
+    the probe above holds that none of them pulls in ``jax`` or ``repro``."""
+    import importlib
+
+    from repro.planner import __all__ as ref_planner_all
+
+    expected = {
+        "repro_torch.planner": set(ref_planner_all),
+        "repro_torch.planner.layouts": {"MeshLayout", "enumerate_layouts"},
+        "repro_torch.planner.planner": {"LayoutDecision", "LayoutRefusal",
+                                        "LayoutPlan", "LayoutPlanner"},
+        "repro_torch.planner.__main__": {"main"},
+        "repro_torch.launch.train": {"main"},
+        "repro_torch.bench.engine_bench": {"run", "ledger_breakdown_parity",
+                                           "calibration_accuracy", "campaign_accuracy",
+                                           "planner_bench", "collective_calibration"},
+        "repro_torch.bench.kernel_bench": {"run", "card_rows"},
+        "repro_torch.bench.serve_bench": {"make_trace", "run_lockstep",
+                                          "run_continuous", "run", "run_chaos",
+                                          "run_chunked"},
+        "repro_torch.bench.run": {"main", "NOT_PORTED"},
+    }
+    for name, names in expected.items():
+        mod = importlib.import_module(name)
+        assert all(hasattr(mod, n) for n in names), name
+        assert names <= set(getattr(mod, "__all__", names)), name
+    planner = importlib.import_module("repro_torch.planner")
+    assert planner.__all__ == ref_planner_all
+    bench_run = importlib.import_module("repro_torch.bench.run")
+    assert set(bench_run.NOT_PORTED) == {"roofline"}

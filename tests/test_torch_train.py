@@ -311,16 +311,6 @@ def test_launcher_trains_and_prints_the_reference_summary(capsys, tmp_path):
     assert (tmp_path / "ck" / "step_000000001" / "manifest.json").exists()
 
 
-@pytest.mark.parametrize("flag, value, item", [
-    ("--auto-mesh", "2", "item 7"),
-    ("--n-micro", "4", "item 7"),
-])
-def test_launcher_admission_flags_name_their_items(flag, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        launch.main(["--arch", "internlm2-1.8b", "--reduced", "--steps", "1",
-                     "--torch-device", "cpu", flag, value])
-
-
 def test_launcher_lm_forest_loads_the_forest(tmp_path):
     """``--lm-forest`` no longer waits on a ROADMAP item: it loads the
     campaign-fitted forest, so a missing file raises before any parameter
