@@ -170,7 +170,33 @@ Phases (any failure raises and the script exits non-zero):
    ``engine_bench`` (``run``, ledger parity, calibration on the repo's
    fixture, the reduced smoke campaign measured on the card into a fresh
    ledger); each sub-phase's seconds;
-12. a ``{"kernels": [...]}`` JSON line (the flash entry with the train
+12. dist — sharded execution (``repro_torch.launch.{mesh,lowering,dryrun}``,
+   ``repro_torch.distributed``): (a) the dry-run, in a child process
+   beside (b)-(d) (host work on meta tensors under a ``fake`` process
+   group): full-width
+   internlm2-1.8b, qwen3-4b (train_4k, prefill_32k, decode_32k) and
+   qwen3-moe-30b-a3b (train_4k, all 48 layers) on the production 16x16
+   mesh, internlm2-1.8b train_4k on 2x16x16 and on 1x1, and the train
+   cell (B 4 x S 2048) on the planner's 1x2x4 layout, priced on this
+   card's spec into a fresh ledger under ``build/repro_torch/dist/``;
+   every cell again (``DONE``), the roofline table; gated on collective
+   bytes > 0 on every multi-device cell and 0 on 1x1, all-to-all bytes > 0
+   on the MoE cell, the class breakdown re-summing to the aggregates, no
+   kernel launched and nothing allocated on the card; (b) one real rank:
+   an ``nccl`` group of world size 1, full-width internlm2-1.8b (the
+   benches phase's seed-0 draw) trained one step through
+   ``Trainer(mesh=make_mesh((1, 1)), state_shardings=...)``, its first
+   loss within 1e-6 of the train phase's; the launcher's ``--auto-mesh 1``
+   trains unsharded; (c) rank 0 of the planner's 1x2x4 layout of the
+   train cell run for real under a ``fake`` group of 8 on the card
+   (zero-filled, collectives that move nothing): its Γ and step time
+   beside the per-device numbers of the benches phase's plan and of the
+   dry-run, gated on the steps completing with Γ > 0 and every local
+   shard owning no more storage than its own; (d) ``engine_bench.collective_calibration``
+   on two ``gloo`` CPU ranks (beside (a)-(c)) and
+   ``check_thresholds.evaluate`` over the benches phase's results and
+   the calibration's: every condition printed, a ``FAIL`` fails the run;
+13. a ``{"kernels": [...]}`` JSON line (the flash entry with the train
    phase's ``train_*`` numbers, paged decode with the layers phase's
    ``moe_*``, the admit phase's ``admit_*``, the campaign phase's
    ``campaign_*`` and the benches phase's ``serve_bench_*`` numbers, SSD
@@ -184,6 +210,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
@@ -3649,7 +3676,391 @@ def benches_phase(trained: dict) -> dict:
         secs[name] = (fn(), time.perf_counter() - t1)
         print(f"benches {name} done in {secs[name][1]:.1f} s")
     print(f"benches phase done in {time.perf_counter() - t0:.1f} s")
-    return {name: r for name, (r, _) in secs.items()}
+    return {**{name: r for name, (r, _) in secs.items()}, "drawing": drawing}
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution: the dry-run, one real rank, rank 0 of a sharded layout
+# (repro_torch.launch.{mesh,lowering,dryrun}, repro_torch.distributed)
+# ---------------------------------------------------------------------------
+
+# (a) the dry-run's cells: (mesh, arch, shape); the production 16x16 mesh,
+# one 2x16x16 cell, the same arch and shape on 1x1 (no collective), and
+# the planner's 1x2x4 layout of the train cell (a 2x4 mesh) for (c)
+DIST_SHAPE = "train_b4_s2048"
+DRYRUN_CELLS = (("16x16", "internlm2-1.8b", "train_4k"),
+                ("16x16", "qwen3-4b", "train_4k"),
+                ("16x16", "qwen3-4b", "prefill_32k"),
+                ("16x16", "qwen3-4b", "decode_32k"),
+                ("16x16", "qwen3-moe-30b-a3b", "train_4k"),
+                ("2x16x16", "internlm2-1.8b", "train_4k"),
+                ("1x1", "internlm2-1.8b", "train_4k"),
+                ("2x4", "internlm2-1.8b", DIST_SHAPE))
+DRYRUN_DIR = ROOT / "build" / "repro_torch" / "dist"
+DRYRUN_TIMEOUT_S = 900
+# (c) the planner's chosen layout of the train cell over 8 devices (pipe x
+# data x model); its per-device Γ and Φ are read from the benches phase's plan
+DIST_LAYOUT, DIST_DESCRIPTOR = (2, 4), "1x2x4"
+DIST_STEPS = 2
+
+
+def dryrun_child(out_dir: str) -> None:
+    """The dry-run's cells (``DRYRUN_CELLS``), each through
+    ``repro_torch.launch.dryrun.main`` on the card's spec into one ledger,
+    then every cell again (each must print ``DONE``) and the roofline
+    table; run in a child process beside the rest of the phase (the
+    traces are host work on meta tensors).  Its last line is ``DRYRUN_RESULT``
+    with the ledger's records and the card's kernel launches and memory
+    before and after."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.bench import roofline_table
+    from repro_torch.configs.base import SHAPES, ShapeSpec
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    torch.cuda.init()
+    SHAPES[DIST_SHAPE] = ShapeSpec(DIST_SHAPE, PLAN_SEQ, PLAN_BATCH, "train")
+    ledger = str(Path(out_dir) / "dryrun.jsonl")
+    before = (kernel_counts(), torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    secs, passes = {}, []
+    for rep in range(2):
+        buf = io.StringIO()
+        for mesh, arch, shape in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            argv = ["--arch", arch, "--shape", shape, "--out", ledger, "--device", "cuda"]
+            argv += ["--multi-pod", "on"] if mesh == "2x16x16" else ["--mesh", mesh]
+            with contextlib.redirect_stdout(buf):
+                dryrun.main(argv)
+            secs.setdefault(f"{arch}|{shape}|{mesh}", []).append(time.perf_counter() - t0)
+        print(buf.getvalue(), flush=True)
+        passes.append(buf.getvalue())
+    roofline_table.run(path=ledger)
+    torch.cuda.synchronize()
+    after = (kernel_counts(), torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    with open(ledger) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    print("DRYRUN_RESULT " + json.dumps({
+        "records": records, "seconds": secs,
+        "done_second": passes[1].count("DONE "), "traced_second": passes[1].count("=== "),
+        "kernels_before": before[0], "kernels_after": after[0],
+        "allocated": [before[1], after[1]], "max_allocated": [before[2], after[2]]}),
+        flush=True)
+
+
+def dryrun_start():
+    """Start :func:`dryrun_child` in a child process (its output into
+    ``build/repro_torch/dist/dryrun.log``, the directory made afresh);
+    returns (process, log path, start time)."""
+    import shutil
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    log = DRYRUN_DIR / "dryrun.log"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]), REPRO_TORCH_TUNING_CACHE=str(DRYRUN_DIR / "tuning.json"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.dryrun_child({str(DRYRUN_DIR)!r})"],
+            cwd=str(ROOT), env=env, stdout=f, stderr=subprocess.STDOUT)
+    print(f"dist dry-run started in a child process (pid {proc.pid}): "
+          f"{len(DRYRUN_CELLS)} cells, log {log.relative_to(ROOT)}", flush=True)
+    return proc, log, time.perf_counter()
+
+
+def dist_dryrun(started) -> dict:
+    """(a) The dry-run's result: every cell traced, every cell ``DONE`` on
+    the second call, collective bytes > 0 on each multi-device cell and 0
+    on the 1x1 cell, all-to-all bytes > 0 on the MoE cell, each record's
+    class breakdown re-summing to its aggregates (rel
+    ``LEDGER_PARITY_RTOL``), no kernel launched and nothing allocated on
+    the card."""
+    proc, log, t0 = started
+    try:
+        proc.wait(timeout=max(DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    text = log.read_text()
+    for line in text.splitlines():
+        if not line.startswith("DRYRUN_RESULT "):
+            print(f"dist dryrun | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry-run child exited {proc.returncode}")
+    res = json.loads(text.split("DRYRUN_RESULT ", 1)[1].splitlines()[0])
+    recs = {(r["arch"], r["shape"], r["mesh"]): r for r in res["records"]}
+    failed = [k for k, r in recs.items() if r.get("failed") or r.get("skipped")]
+    if len(recs) != len(DRYRUN_CELLS) or failed:
+        raise AssertionError(f"dry-run cells not all traced: {len(recs)} records, {failed}")
+    if res["done_second"] != len(DRYRUN_CELLS) or res["traced_second"] != 0:
+        raise AssertionError(f"the second dry-run call retraced: {res['done_second']} DONE, "
+                             f"{res['traced_second']} traced")
+    if res["kernels_before"] != res["kernels_after"] or \
+            res["max_allocated"][0] != res["max_allocated"][1] or \
+            res["allocated"][0] != res["allocated"][1]:
+        raise AssertionError(f"the dry-run launched a kernel or allocated on the card: {res}")
+    for (arch, shape, mesh), r in sorted(recs.items()):
+        cls = r["class_breakdown"]
+        for key in ("flops", "hbm_bytes", "collective_bytes"):
+            total = sum(c[key] for c in cls.values())
+            if abs(total - r[key]) > LEDGER_PARITY_RTOL * max(abs(r[key]), 1.0):
+                raise AssertionError(f"{arch} {shape} {mesh}: class {key} {total} != {r[key]}")
+        multi = r["n_devices"] > 1
+        if multi != (r["collective_bytes"] > 0):
+            raise AssertionError(f"{arch} {shape} {mesh}: collective bytes "
+                                 f"{r['collective_bytes']} on {r['n_devices']} device(s)")
+        secs = res["seconds"][f"{arch}|{shape}|{mesh}"]
+        print(f"dist dryrun {arch} × {shape} [{mesh}]: {r['n_devices']} devices, per device "
+              f"FLOPs {r['flops']:.4e}, HBM bytes {r['hbm_bytes']:.4e}, collective bytes "
+              f"{r['collective_bytes']:.4e} {json.dumps(r['bytes_by_kind'])}; compute "
+              f"{r['compute_s'] * 1e3:.2f} ms, memory {r['memory_s'] * 1e3:.2f} ms, collective "
+              f"{r['collective_s'] * 1e3:.2f} ms, dominant {r['dominant']}; per-device HBM "
+              f"{r['per_device_hbm_gb']:.3f} GB ({'fits' if r['fits_hbm'] else 'OVER'}); "
+              f"useful {r['useful_ratio']:.3f}; sequence-parallel hint {r['sp']}; traced "
+              f"in {secs[0]:.1f} s, second call "
+              f"{secs[1]:.2f} s")
+    moe = recs[("qwen3-moe-30b-a3b", "train_4k", "16x16")]
+    if not moe["bytes_by_kind"].get("all-to-all", 0) > 0:
+        raise AssertionError(f"no all-to-all bytes on the MoE cell: {moe['bytes_by_kind']}")
+    print(f"dist dryrun: {len(recs)} cells traced and re-read in {wall:.1f} s of the child "
+          f"(beside (b)-(d)); kernel launches and card memory unchanged "
+          f"({res['max_allocated'][0]} bytes peak)")
+    return {"records": recs, "wall": wall}
+
+
+def dist_real_rank(drawing, trained: dict) -> dict:
+    """(b) One real rank: an ``nccl`` group of world size 1, full-width
+    internlm2-1.8b (the seed-0 parameters the benches phase drew) trained
+    one step at B 4 x S 2048 through ``Trainer(mesh=make_mesh((1, 1)),
+    state_shardings=train_state_shardings(...))``; its first loss against
+    the train phase's.  Then the launcher's ``--auto-mesh 1`` (reduced) in
+    the same group: one device, trained unsharded."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.optimizer import init_opt_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    store = DRYRUN_DIR / "nccl_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    print(f"dist real rank: process group up ({dist.get_backend()}, world "
+          f"{dist.get_world_size()})", flush=True)
+    try:
+        cfg = get_config(PLAN_ARCH)
+        shape = ShapeSpec("train", PLAN_SEQ, PLAN_BATCH, "train")
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        trainer = Trainer(cfg, shape, tcfg=TrainerConfig(seed=0), mesh=mesh,
+                          state_shardings=sh.train_state_shardings(cfg, mesh))
+        model = drawing.result()[0].to("cuda")        # the seed-0 draw, unmodified
+
+        def init():
+            return trainer.place({"params": model, "opt": init_opt_state(
+                dict(model.named_parameters()), trainer.opt_cfg)})
+
+        trainer.init_state = init
+        t0 = time.perf_counter()
+        out = trainer.train(1)
+        secs = time.perf_counter() - t0
+        loss = out["history"][0]["loss"]
+        if not isinstance(out["state"]["params"].embed, DTensor):
+            raise AssertionError("the trainer's state is not on the mesh")
+        gap = abs(loss - trained["first_loss"]) / abs(trained["first_loss"])
+        print(f"dist real rank: nccl world size {dist.get_world_size()}, mesh (1, 1) "
+              f"{tuple(mesh.mesh_dim_names)}, {PLAN_ARCH} B={PLAN_BATCH} S={PLAN_SEQ} one "
+              f"step in {secs:.1f} s ({out['history'][0]['dt'] * 1e3:.1f} ms): first loss "
+              f"{loss:.6f} against the train phase's {trained['first_loss']:.6f}: relative "
+              f"difference {gap:.3e} (tol {LAUNCH_LOSS_RTOL})")
+        if not gap <= LAUNCH_LOSS_RTOL:
+            raise AssertionError(f"the sharded trainer's first loss disagrees: {gap}")
+        del out, trainer, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        argv = ["--arch", PLAN_ARCH, "--reduced", "--steps", "1", "--batch", "4", "--seq",
+                "32", "--device", "h100", "--auto-mesh", "1"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summary = launch.main(argv)
+        line = next((ln for ln in buf.getvalue().splitlines() if ln.startswith("auto-mesh:")),
+                    "")
+        print(f"dist real rank launcher {' '.join(argv)}: {line!r}, first loss "
+              f"{summary['first_loss']:.6f}")
+        if "is one device — training unsharded" not in line or summary["steps"] != 1 \
+                or not np.isfinite(summary["first_loss"]):
+            raise AssertionError(f"the launcher's --auto-mesh 1: {line!r} {summary}")
+    finally:
+        dist.destroy_process_group()
+    return {"gap": gap, "seconds": secs}
+
+
+def dist_rank0(plan) -> dict:
+    """(c) Rank 0 of the planner's 1x2x4 layout (2-way data x 4-way model)
+    of full-width internlm2-1.8b, train B 4 x S 2048, run for real on the
+    card under a ``fake`` group of 8 (its collectives move nothing, so its
+    values are not results): the state placed by
+    ``train_state_shardings`` (zero-filled parameters, no draw), the
+    trainer's steps; the measured per-device Γ (``max_memory_allocated``
+    over the steps, the state included) and step time beside the
+    prediction of ``plan`` (the benches phase's plan over 8 devices) and
+    the dry-run's ``per_device_hbm_gb`` of the same cell.  Each local
+    shard must own its storage, no more."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizer import init_opt_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    planned = plan.decision_for(DIST_DESCRIPTOR)
+    if planned is None:
+        raise AssertionError(f"the plan over 8 devices has no {DIST_DESCRIPTOR}")
+    planned_gb, planned_ms = planned.gamma_mb / 1e3, planned.phi_ms
+    cfg = get_config(PLAN_ARCH)
+    shape = ShapeSpec("train", PLAN_SEQ, PLAN_BATCH, "train")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    mem = {}
+    with fake_world(8):
+        mesh = make_mesh(DIST_LAYOUT, ("data", "model"), device="cuda")
+        trainer = Trainer(cfg, shape, tcfg=TrainerConfig(seed=0), mesh=mesh)
+
+        def init():
+            model = T.LM(cfg, device="cuda")
+            state = trainer.place({"params": model, "opt": init_opt_state(
+                dict(model.named_parameters()), trainer.opt_cfg)})
+            torch.cuda.synchronize()
+            mem["state"] = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            return state
+
+        trainer.init_state = init
+        t0 = time.perf_counter()
+        out = trainer.train(DIST_STEPS)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        embed = out["state"]["params"].embed
+        local = embed.to_local()
+        print(f"dist rank 0: backend {dist.get_backend()} world {dist.get_world_size()}, "
+              f"mesh {DIST_LAYOUT} on {mesh.device_type}; embed {tuple(embed.shape)} "
+              f"{embed.placements} -> local {tuple(local.shape)} on {local.device}")
+        if local.device.type != "cuda":
+            raise AssertionError(f"the fake group placed the shard on {local.device}")
+        over = [n for n, p in out["state"]["params"].named_parameters()
+                if p.to_local().untyped_storage().nbytes()
+                != p.to_local().numel() * p.to_local().element_size()]
+        if over:
+            raise AssertionError(f"local shards hold more storage than their own: {over}")
+    dts = [h["dt"] for h in out["history"]]
+    del out, trainer, embed, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = dts[-1] * 1e3
+    print(f"dist rank 0 of 1x2x4 ({PLAN_ARCH} B={PLAN_BATCH} S={PLAN_SEQ}, zero-filled, "
+          f"collectives of a fake group): {DIST_STEPS} steps in {secs:.1f} s, step times "
+          f"{', '.join(f'{d * 1e3:.1f}' for d in dts)} ms; state {mem['state'] / 1e9:.3f} GB, "
+          f"Γ (max_memory_allocated over the steps, state included) {peak / 1e9:.3f} GB; "
+          f"the benches phase's plan of {DIST_DESCRIPTOR} over 8 devices (chosen "
+          f"{plan.chosen.layout.descriptor}): Γ {planned_gb:.3f} GB (measured / planned "
+          f"{peak / 1e9 / planned_gb:.3f}), Φ {planned_ms:.2f} ms (last step / planned "
+          f"{step_ms / planned_ms:.3f})")
+    if not (peak > 0 and len(dts) == DIST_STEPS):
+        raise AssertionError(f"rank 0's steps did not complete: {dts}, Γ {peak}")
+    return {"gamma": peak, "step_ms": step_ms, "seconds": secs}
+
+
+def dist_rank0_against(rank0: dict, dry: dict) -> None:
+    """(c)'s measured Γ and step time beside the dry-run's per-device
+    numbers of the same cell (the train cell on the 2x4 mesh)."""
+    cell = dry["records"][(PLAN_ARCH, DIST_SHAPE, "2x4")]
+    print(f"dist rank 0 against the dry-run's 1x2x4 cell: per_device_hbm_gb "
+          f"{cell['per_device_hbm_gb']:.3f} GB (measured / dry-run "
+          f"{rank0['gamma'] / 1e9 / cell['per_device_hbm_gb']:.3f}), its roofline step "
+          f"{cell['step_s'] * 1e3:.2f} ms (dominant {cell['dominant']}; the last step / "
+          f"roofline {rank0['step_ms'] / (cell['step_s'] * 1e3):.3f})")
+
+
+def dist_thresholds(benches: dict, coll: dict) -> None:
+    """(d) ``check_thresholds.evaluate`` over the results the benches phase
+    holds and ``collective_calibration``'s: every condition printed as
+    the reference states it; a ``FAIL`` fails the run."""
+    from repro_torch.bench import check_thresholds
+
+    if not coll:
+        raise AssertionError("collective_calibration returned nothing (its CPU ranks or "
+                             "its fit failed)")
+    ke, serve = benches["kernel_engine_bench"], benches["serve_bench"]["results"]
+    results = {"engine": ke["engine"], "campaign": ke["campaign"],
+               "planner": benches["planner_bench"], "collective": coll,
+               "serve": serve["run"], "chunked": serve["chunked"], "chaos": serve["chaos"],
+               "kernel": ke["kernel"]}
+    failures = check_thresholds.evaluate(results, lambda line: print(f"dist thresholds {line}"))
+    print(f"dist thresholds: {len(failures)} of the reference's conditions failed")
+    if failures:
+        raise AssertionError(f"check_thresholds: {failures}")
+
+
+def dist_phase(benches: dict, trained: dict) -> dict:
+    """(a) the dry-run in a child process and (d)'s collective calibration
+    on two CPU ranks, both started first and run beside (b) one real rank
+    and (c) rank 0 of a sharded layout; then their results and the
+    reference's thresholds (see the module docstring, phase 12).  The
+    dry-run starts here, not earlier: beside the measured phases its host
+    work slowed each by 15-30%."""
+    from repro_torch.bench import engine_bench
+
+    t0 = time.perf_counter()
+    dryrun_started = dryrun_start()
+    atexit.register(dryrun_stop, dryrun_started)
+    ledger = DRYRUN_DIR / "collective.jsonl"
+    ledger.unlink(missing_ok=True)
+    lines = []
+    pool = ThreadPoolExecutor(1)
+    calibrating = pool.submit(engine_bench.collective_calibration, lines.append,
+                              ledger_path=str(ledger))
+    pool.shutdown(wait=False)
+    real = dist_real_rank(benches["drawing"], trained)
+    rank0 = dist_rank0(benches["planner"]["plans"][8])
+    dry = dist_dryrun(dryrun_started)
+    dist_rank0_against(rank0, dry)
+    t1 = time.perf_counter()
+    coll = calibrating.result()
+    for line in lines:
+        print(f"dist collective_calibration {line}")
+    print(f"dist collective_calibration on two gloo CPU ranks: {coll} (waited "
+          f"{time.perf_counter() - t1:.1f} s after (c))")
+    dist_thresholds(benches, coll)
+    print(f"dist phase done in {time.perf_counter() - t0:.1f} s")
+    return {"dryrun": dry, "real": real, "rank0": rank0, "collective": coll}
+
+
+def dryrun_stop(started) -> None:
+    """Kill the dry-run child if it still runs (the script failed first)."""
+    proc = started[0]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
 
 
 def main() -> int:
@@ -3731,6 +4142,7 @@ def main() -> int:
     engine = engine_phase(cnn)
     bench = bench_phase(cnn)
     benches = benches_phase(trained)
+    dist_phase(benches, trained)
     card = benches["kernel_engine_bench"]["kernel"]["card"]
 
     def kernel_bench_fields(name: str) -> dict:

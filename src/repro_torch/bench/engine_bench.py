@@ -24,8 +24,10 @@ Where the reference differs from a torch port:
 * ``planner_bench`` traps the port's counterpart of the reference's
   ``_compile_arch``, ``AnalyticalBackend._trace_arch``, and counts its
   calls;
-* ``collective_calibration`` needs more than one device's measured
-  collective bytes: it waits for ROADMAP queue 1 item 7c.
+* ``collective_calibration`` measures the reference's >1-device grid
+  (``campaign.plan.collective_smoke_plan``) over two ``gloo`` CPU ranks
+  in a subprocess, where the reference forces two host devices: both
+  measure collectives on the host.
 """
 
 from __future__ import annotations
@@ -490,13 +492,111 @@ def planner_bench(print_fn=print, *, n_devices: int = 256) -> dict:
     }
 
 
+COLLECTIVE_LEDGER = str(BUILD_DIR / "engine_bench_campaign_collective.jsonl")
+
+def _collective_rank(rank: int, store: str, ledger: str) -> None:
+    """One of the two ``gloo`` ranks of :func:`collective_calibration`:
+    the >1-device smoke grid through the campaign runner (every rank runs
+    every cell; rank 0 writes the ledger)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.campaign import CampaignRunner
+    from repro_torch.campaign.plan import collective_smoke_plan
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                            world_size=2)
+    try:
+        out = CampaignRunner(collective_smoke_plan(), ledger, repeats=2, warmup=1,
+                             device="cpu").run_campaign()
+        if rank == 0:
+            print("CELLS", out["measured"], out["failed"], out["remaining"], flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _collective_main(store: str, ledger: str) -> None:
+    import torch.multiprocessing as mp
+
+    mp.spawn(_collective_rank, args=(store, ledger), nprocs=2)
+
+
+_COLLECTIVE_SCRIPT = ("import sys\n"
+                      "from repro_torch.bench.engine_bench import _collective_main\n"
+                      "_collective_main(sys.argv[1], sys.argv[2])\n")
+
+
 def collective_calibration(print_fn=print, *, ledger_path: str | None = None
                            ) -> dict:
-    """The reference measures a >1-device calibration grid; one card
-    measures no collective bytes."""
-    raise NotImplementedError(
-        "collective_calibration measures collective bytes across devices: "
-        "it waits for ROADMAP.md, Queue 1, item 7c")
+    """Collective-coefficient rows: run the >1-device calibration grid
+    (``campaign.plan.collective_smoke_plan`` — the same cells on 1x1,
+    2x1 and 1x2 meshes) over two ``gloo`` CPU ranks in a subprocess, then
+    fit the HLO constants over the ledger and report whether the
+    collective column entered the fit on real measurements.
+
+    Subprocess because the two ranks are processes of their own (the
+    reference's: a forced 2-device host, which must be set before jax
+    initializes).  The ledger (default under ``build/repro_torch/``)
+    persists, so after the first run this is resume + fit.  Skips (empty
+    dict) instead of failing when the subprocess or the fit can't run —
+    the reference's degraded contract."""
+    import json
+    import shutil
+    import subprocess
+    import sys
+    import tempfile
+
+    from repro_torch.campaign import CampaignLedger, fit_hlo_constants
+    from repro_torch.campaign.plan import collective_smoke_plan
+
+    ledger_path = ledger_path or COLLECTIVE_LEDGER
+    os.makedirs(os.path.dirname(os.path.abspath(ledger_path)), exist_ok=True)
+    src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    store_dir = tempfile.mkdtemp(prefix="collective_store_", dir=str(BUILD_DIR))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", _COLLECTIVE_SCRIPT,
+             os.path.join(store_dir, "store"), os.path.abspath(ledger_path)],
+            env=env, capture_output=True, text=True, timeout=900)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    if proc.returncode != 0:
+        print_fn(csv_line("campaign/collective_skipped", 1.0,
+                          f"measure subprocess failed: "
+                          f"{proc.stderr.strip().splitlines()[-1:] or '?'}"))
+        return {}
+
+    plan_keys = {c.key for c in collective_smoke_plan().cells}
+    records = [r for r in CampaignLedger(ledger_path).records("ok")
+               if r.get("key") in plan_keys]
+    try:
+        spec = fit_hlo_constants(records)
+    except ValueError as e:
+        print_fn(csv_line("campaign/collective_skipped", 1.0,
+                          f"fit refused: {e}"))
+        return {}
+    meta = spec.meta
+    coeff = (meta["collective_coeff_classwise"]
+             if meta["collective_coeff_classwise"] is not None
+             else meta["collective_coeff_aggregate"])
+    print_fn(csv_line("campaign/collective_cells", meta["collective_cells"],
+                      f"of {len(records)} fitted (meshes 1x1/2x1/1x2)"))
+    print_fn(csv_line("campaign/collective_column_fitted",
+                      float(meta["collective_column_fitted"]),
+                      f"classwise_columns={len(meta['classwise_columns'])}"))
+    print_fn(csv_line("campaign/collective_coeff_s_per_byte", coeff,
+                      json.dumps({"aggregate":
+                                  meta["collective_coeff_aggregate"]})))
+    return {
+        "collective_cells": meta["collective_cells"],
+        "collective_column_fitted": meta["collective_column_fitted"],
+        "collective_coeff": coeff,
+        "collective_coeff_aggregate": meta["collective_coeff_aggregate"],
+        "n_records": len(records),
+    }
 
 
 def _timed(fn) -> float:

@@ -13,8 +13,9 @@ and ``engine`` (``engine_bench.run`` then ``planner_bench``) run on
     PYTHONPATH=src python -m repro_torch.bench.run [--only fig3,fig4] [--skip-slow]
     PYTHONPATH=src python -m repro_torch.bench.run --only kernels,engine [--device cpu]
 
-The reference's ``roofline`` bench is not ported yet; ``--only roofline``
-stops with the ROADMAP item it waits for.
+``roofline`` (``roofline_table.run``) prints the rows of the dry-run's
+ledger (``repro_torch.launch.dryrun``, default ``build/repro_torch/
+dryrun.jsonl``).
 """
 
 from __future__ import annotations
@@ -26,10 +27,7 @@ import time
 import traceback
 
 # ROADMAP.md, queue 1: what each bench that is not ported waits for
-NOT_PORTED = {
-    "roofline": "ROADMAP queue 1 item 7c (launch/dryrun, which writes the "
-                "dry-run reports it reads)",
-}
+NOT_PORTED: dict[str, str] = {}
 
 
 def main(argv=None) -> None:
@@ -45,8 +43,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     from . import (dnnmem_comparison, engine_bench, fig3_same_network, fig4_basis,
-                   kernel_bench, strategy_variation, table2_case_study,
-                   trainset_sweep)
+                   kernel_bench, roofline_table, strategy_variation,
+                   table2_case_study, trainset_sweep)
 
     def engine(**_):
         engine_bench.run(device=args.device)
@@ -59,6 +57,7 @@ def main(argv=None) -> None:
         "dnnmem": dnnmem_comparison.run,          # §6.2.1
         "strategies": strategy_variation.run,     # §6.2 (100 strategies)
         "table2": table2_case_study.run,          # Table 2 / §6.4
+        "roofline": roofline_table.run,           # deliverable g (dry-run)
         "kernels": lambda **_: kernel_bench.run(device=args.device),  # kernel μ-bench
         "engine": engine,                         # batched CostBackend API, planner
     }

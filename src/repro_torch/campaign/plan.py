@@ -245,8 +245,9 @@ def collective_smoke_plan(
     (``fit.fit_hlo_constants``) spans nonzero values and the collective
     coefficient is fit on real measurements instead of staying at the
     ici_bw guess.  The plan is the reference's, cell for cell; the
-    port's runner quarantines its multi-device cells (``MeshSpecError``)
-    until sharded execution lands (ROADMAP queue 1 item 7c)."""
+    port's runner measures its multi-device cells over two ranks
+    (``bench/engine_bench.collective_calibration``: two ``gloo`` CPU
+    ranks) and quarantines them (``MeshSpecError``) with fewer."""
     return plan_grid(archs=archs, shapes=shapes,
                      meshes=("1x1", "2x1", "1x2"),
                      device=device, reduced=True, seed=seed)

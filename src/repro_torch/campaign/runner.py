@@ -29,8 +29,14 @@ The default measurement (:func:`measure_cell`) builds the real step
 through ``launch/lowering.compile_cell`` zero-filled on the card, times
 it with CUDA events, measures its memory by the profiler's card
 definition and traces its aten-op cost ledger on the meta device.  A
-cell that runs out of memory on the card is quarantined like any other
-failure.  The timeout fence cannot stop a CUDA call: an abandoned
+cell of several devices runs over that many ranks of the process group
+(``torchrun``; every rank runs the same plan, rank 0 writes the
+ledger), its step and its trace sharded (DTensors on a ``DeviceMesh``;
+per-device numbers, collective bytes from the collectives the sharded
+step runs); short of ranks it is quarantined (``MeshSpecError``).  A
+compile-only cell (``run=False``) of several devices is traced in this
+one process under ``launch.mesh.fake_world``.  A cell that runs out of
+memory on the card is quarantined like any other failure.  The timeout fence cannot stop a CUDA call: an abandoned
 measurement thread runs on and holds its memory until it ends.
 """
 
@@ -43,6 +49,7 @@ from dataclasses import dataclass, field
 
 from repro_torch.campaign.plan import CampaignCell, CampaignPlan, mesh_dims
 from repro_torch.core.fileio import append_jsonl, load_jsonl_tolerant
+from repro_torch.launch.mesh import is_rank0
 
 __all__ = ["CampaignLedger", "CampaignRunner", "CellTimeout", "measure_cell"]
 
@@ -102,7 +109,8 @@ class CampaignLedger:
     # -- writes ------------------------------------------------------------
 
     def append(self, record: dict) -> None:
-        append_jsonl(self.path, record)
+        if is_rank0():          # in a process group, rank 0 writes the file
+            append_jsonl(self.path, record)
         self._by_key[record["key"]] = record
 
     def __len__(self) -> int:
@@ -138,23 +146,39 @@ def _run_on_device(cfg, shape, dims, device, repeats: int, warmup: int) -> dict:
             "arg": float(_nbytes(resident)), "temp": float(temp), "out": float(out)}
 
 
-def _trace(cfg, shape, dims):
+def _trace(cfg, shape, dims, mesh_device: str = "cpu"):
     """The cell's step traced on meta tensors (nothing allocated or
     launched): its cost ledger and its Γ terms by the written definition
-    of a traced step (``core/profiler.meta_memory``)."""
+    of a traced step (``core/profiler.meta_memory``).  A cell of several
+    devices is traced sharded over a ``mesh_device`` mesh of the group's
+    ranks, or of a fake group of that many (``launch.mesh.fake_world``)
+    when none is up: per-device numbers and collective bytes.  Returns
+    ``(cost, mem, sp)``, ``sp`` the sequence-parallel hint of a sharded
+    step (False on one device)."""
+    import contextlib
+    import math
+
+    import torch.distributed as dist
+
     from repro_torch.core.hlo_cost import recording
     from repro_torch.core.profiler import _nbytes, meta_memory
     from repro_torch.kernels.autotune import untimed
-    from repro_torch.launch.lowering import compile_cell, tensors_of
+    from repro_torch.launch.lowering import compile_cell, mesh_axes, tensors_of
+    from repro_torch.launch.mesh import fake_world, make_mesh
 
-    step, args, _ = compile_cell(cfg, shape, dims, device="meta")
-    train = shape.kind == "train"
-    grad_bytes = _nbytes(tensors_of(args[0]["params"])) if train else 0
-    with untimed(), recording() as cost:
-        mem = meta_memory(lambda *a: tensors_of(step(*a)), args,
-                          tensors_of(list(args)), grad_bytes=grad_bytes,
-                          train=train)
-    return cost, mem
+    n = math.prod(dims)
+    world = (contextlib.nullcontext() if n == 1 or dist.is_initialized()
+             else fake_world(n))
+    with world:
+        mesh = dims if n == 1 else make_mesh(dims, mesh_axes(dims), device=mesh_device)
+        step, args, _ = compile_cell(cfg, shape, mesh, device="meta")
+        train = shape.kind == "train"
+        grad_bytes = _nbytes(tensors_of(args[0]["params"])) if train else 0
+        with untimed(), recording() as cost:
+            mem = meta_memory(lambda *a: tensors_of(step(*a)), args,
+                              tensors_of(list(args)), grad_bytes=grad_bytes,
+                              train=train)
+    return cost, mem, getattr(step, "sp", False)
 
 
 def measure_cell(
@@ -186,12 +210,16 @@ def measure_cell(
       — the step's aten-op ledger traced on the meta device
       (``core/hlo_cost``), the energy bucket priced by the device
       envelope;
-    * ``layout`` — ``layout_collectives`` on ``abstract_mesh(dims)``.
+    * ``layout`` — ``layout_collectives`` on ``abstract_mesh(dims)``;
+    * ``sp`` (the port's key, on a cell of several devices only) — the
+      sequence-parallel hint the sharded step ran with
+      (``layers.sequence_parallel``).
 
     ``run=False`` executes nothing (the reference's compile-only cell):
-    ``phi_ms`` is 0 and Γ is the traced step's.  A mesh of more devices
-    than the host has raises ``MeshSpecError`` (the runner quarantines
-    it).  On the card the memory is released (``gc.collect``,
+    ``phi_ms`` is 0 and Γ is the traced step's; a mesh of several devices
+    is traced sharded in this process (collective bytes > 0).  A measured
+    cell of more devices than the process group has ranks raises
+    ``MeshSpecError`` (the runner quarantines it).  On the card the memory is released (``gc.collect``,
     ``empty_cache``) after the cell, also when it fails."""
     return _measure_cell(cell, repeats=repeats, warmup=warmup, run=run,
                          device=device)[0]
@@ -210,12 +238,14 @@ def _measure_cell(cell: CampaignCell, *, repeats: int, warmup: int, run: bool,
     from repro_torch.distributed.collectives import abstract_mesh, layout_collectives
     from repro_torch.engine.decompose import price_ledger_energy, watts_proxy
     from repro_torch.engine.devices import resolve_device
-    from repro_torch.launch.lowering import check_mesh
+    from repro_torch.launch.lowering import check_mesh, mesh_axes
+    from repro_torch.launch.mesh import validate_mesh_spec
 
     torch_dev = resolve_torch_device(device)
     cfg = get_config(cell.arch, reduced=cell.reduced)
     dims = mesh_dims(cell.mesh)
-    n_devices = check_mesh(dims, torch_dev)
+    n_devices = (check_mesh(dims, torch_dev) if run
+                 else validate_mesh_spec(dims, mesh_axes(dims)))
 
     mb = None
     if run:
@@ -230,7 +260,7 @@ def _measure_cell(cell: CampaignCell, *, repeats: int, warmup: int, run: bool,
             if torch_dev.type == "cuda":
                 gc.collect()
                 torch.cuda.empty_cache()
-    cost, mem = _trace(cfg, cell.shape, dims)
+    cost, mem, sp = _trace(cfg, cell.shape, dims, torch_dev.type)
     if mb is None:
         mb = {"phi_ms": 0.0, "compile_s": 0.0, **mem}
     phi_ms = mb["phi_ms"]
@@ -248,6 +278,8 @@ def _measure_cell(cell: CampaignCell, *, repeats: int, warmup: int, run: bool,
     # coefficient and the planner's byte model can be compared
     # cell-by-cell.
     layout = layout_collectives(cfg, cell.shape, abstract_mesh(dims)).to_dict()
+    # the sequence-parallel hint a sharded cell ran with (the port's key)
+    sharded = {"sp": sp} if int(n_devices) > 1 else {}
     return {
         "gamma_mb": (mb["arg"] + mb["out"] + mb["temp"]) / 1e6,
         "phi_ms": phi_ms,
@@ -269,6 +301,7 @@ def _measure_cell(cell: CampaignCell, *, repeats: int, warmup: int, run: bool,
         "arg_mb": mb["arg"] / 1e6,
         "n_devices": int(n_devices),
         "executed": bool(run),
+        **sharded,
     }, mem
 
 

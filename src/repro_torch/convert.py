@@ -52,17 +52,24 @@ def _stacked(path: tuple[str, ...]) -> bool:
     return path[0] in ("blocks", "encoder")
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A CPU copy of ``t``, detached; a ``DTensor`` gathered whole first
+    (a collective: every rank calls it)."""
+    full = getattr(t, "full_tensor", None)
+    return (full() if full is not None else t).detach().cpu()
+
+
 def _restack(named: dict, cfg: ArchConfig) -> dict:
     """Tensors keyed by parameter name → the reference's tree, block and
     encoder leaves stacked on the scan axis; CPU tensors in their own
-    dtypes."""
+    dtypes (a ``DTensor`` gathered whole)."""
     tree: dict = {}
     for path, shape in param_leaves(cfg):
         if _stacked(path):
-            leaf = torch.stack([named[param_name(cfg, path, layer)].detach().cpu()
+            leaf = torch.stack([_host(named[param_name(cfg, path, layer)])
                                 for layer in range(shape[0])])
         else:
-            leaf = named[param_name(cfg, path)].detach().cpu()
+            leaf = _host(named[param_name(cfg, path)])
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -116,7 +123,7 @@ def train_state_to_tree(state: dict, cfg: ArchConfig) -> dict:
     leaves in their own dtypes (bf16 parameters, f32 slots, int32 step)."""
     opt = state["opt"]
     tree = {"params": _restack(dict(state["params"].named_parameters()), cfg),
-            "opt": {"step": opt["step"].detach().cpu(),
+            "opt": {"step": _host(opt["step"]),
                     **{k: _restack(opt[k], cfg) for k in ("m", "v") if k in opt}}}
     if "err" in state:
         tree["err"] = _restack(state["err"], cfg)

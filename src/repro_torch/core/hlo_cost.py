@@ -34,10 +34,23 @@ Per record:
 * ``origin`` — ``"backward"`` for ops an autograd node runs, else
   ``"forward"``; ``trip_multiplier`` is 1 (eager runs every layer).
 
-``collective_bytes`` is 0: this path runs on one card.  The reference's
-collective parse (``core/hlo_analysis.py``) waits for ROADMAP queue 1
-item 7.  ``HloCost``'s scalars are left-to-right sums of the ledger, so
-``sum(ledger) == aggregates`` holds bit for bit by construction.
+A sharded step (a ``DTensor`` program on a ``DeviceMesh``) is counted
+per device.  The mode declines every op whose types include ``DTensor``
+(``__torch_dispatch__`` returns ``NotImplemented``), so DTensor desugars
+it and the mode sees the local ops on each shard: FLOPs and bytes of the
+local shapes, and the collectives DTensor inserts on its own (a plain
+mode over a DTensor program sees global shapes and no collective).  Ops
+whose arguments are ``FakeTensor``s are DTensor's sharding propagation
+and are not recorded.  Each collective (``core/hlo_analysis
+.collective_kind``: all-gather, all-reduce, reduce-scatter, all-to-all,
+collective-permute) is an ``OpCost`` with that opcode, class
+``collective``, its operand and result bytes as ``hbm_bytes`` and its
+ring-model bytes (``core/hlo_analysis.ring_bytes``, ``g`` the op's group
+size) as ``collective_bytes``; ``bytes_by_kind``/``count_by_kind`` sum
+them by kind.  A step on one device records none, so its
+``collective_bytes`` is exactly 0.  ``HloCost``'s scalars are
+left-to-right sums of the ledger, so ``sum(ledger) == aggregates`` holds
+bit for bit by construction.
 """
 
 from __future__ import annotations
@@ -50,7 +63,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.core.hlo_analysis import _group_of, collective_kind, ring_bytes
 from repro_torch.costmodel import CostLedger, OpCost, classify_op
+from repro_torch.launch.mesh import dtensor_type
 
 __all__ = ["HloCost", "trace_cost", "recording", "aten_opcode"]
 
@@ -103,6 +118,12 @@ def aten_opcode(func) -> str:
     """The HLO opcode one aten op corresponds to (module docstring)."""
     packet = func.overloadpacket
     name = packet.__name__
+    kind = collective_kind(func)
+    if kind is not None:
+        return kind
+    if func.namespace in ("_c10d_functional", "c10d_functional") \
+            and name in ("wait_tensor", "_wrap_tensor_autograd"):
+        return "reshape"            # an alias of the collective's result
     if func.namespace not in ("aten", "prims"):
         return "custom-call"
     if packet in flop_registry:
@@ -136,8 +157,9 @@ class HloCost:
 
     ``flops``/``hbm_bytes``/``collective_bytes`` are left-to-right sums of
     ``ledger`` (the parity contract).  ``bytes_by_kind``/``count_by_kind``
-    (collectives) and ``trip_counts`` (loops) keep the reference's fields
-    and stay empty on this single-card, loop-free path."""
+    sum the collectives by kind (empty on one device); ``trip_counts``
+    (loops) keeps the reference's field and stays empty on this loop-free
+    path."""
 
     flops: float = 0.0
     hbm_bytes: float = 0.0
@@ -152,34 +174,59 @@ class HloCost:
         return self.ledger.class_sums()
 
 
-class _LedgerMode(TorchDispatchMode):
-    """Writes one :class:`OpCost` per aten op that reaches the dispatcher."""
+def _fake(tree) -> bool:
+    return _any_fake(_tensors(tree))
 
-    def __init__(self, ledger: CostLedger):
+
+def _any_fake(tensors) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+class _LedgerMode(TorchDispatchMode):
+    """Writes one :class:`OpCost` per op that reaches the dispatcher on
+    plain (local) tensors; a ``DTensor`` op is declined so that it
+    desugars into its local ops and collectives."""
+
+    def __init__(self, cost: "HloCost"):
         super().__init__()
-        self.ledger = ledger
+        self.cost = cost
+        self.ledger = cost.ledger
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR) for t in types):
+            return NotImplemented
         out = func(*args, **kwargs)
+        ins = _tensors((args, kwargs))
+        if _DTENSOR is not None and _any_fake(ins):
+            return out                  # DTensor's sharding propagation
         opcode = aten_opcode(func)
-        flops = 0.0
+        flops = coll = 0.0
         formula = flop_registry.get(func.overloadpacket)
         if formula is not None:
             flops = float(formula(*args, **kwargs, out_val=out))
         outs = _tensors(out)
         moves = opcode != "reshape" and func.overloadpacket.__name__ not in _ALLOC
-        hbm = _nbytes(_tensors((args, kwargs))) + _nbytes(outs) if moves else 0.0
+        hbm = _nbytes(ins) + _nbytes(outs) if moves else 0.0
+        if collective_kind(func) is not None:
+            coll = ring_bytes(opcode, _nbytes(outs), _group_of(args, kwargs))
+            self.cost.bytes_by_kind[opcode] = self.cost.bytes_by_kind.get(opcode, 0.0) + coll
+            self.cost.count_by_kind[opcode] = self.cost.count_by_kind.get(opcode, 0) + 1
         self.ledger.append(OpCost(
             op=opcode,
             op_class=classify_op(opcode, dot_flops=flops if opcode == "dot" else 0.0,
                                  conv_flops=flops if opcode == "convolution" else 0.0),
             dtype=HLO_DTYPE.get(outs[0].dtype, str(outs[0].dtype)) if outs else "",
-            flops=flops, hbm_bytes=hbm,
+            flops=flops, hbm_bytes=hbm, collective_bytes=coll,
             origin="backward" if torch._C._current_autograd_node() is not None
             else "forward",
         ))
         return out
+
+
+_DTENSOR = dtensor_type()
 
 
 @contextlib.contextmanager
@@ -187,7 +234,7 @@ def recording():
     """Yield an :class:`HloCost` whose ledger records every aten op run
     inside the block; its scalars are summed from the ledger on exit."""
     cost = HloCost()
-    with _LedgerMode(cost.ledger):
+    with _LedgerMode(cost):
         yield cost
     cost.flops = cost.ledger.flops
     cost.hbm_bytes = cost.ledger.hbm_bytes

@@ -61,6 +61,9 @@ nothing is allocated and nothing launched:
   op writes during the forward (the least working set an eager forward
   holds beside its outputs).
 
+Of a sharded step (``DTensor`` arguments on a ``DeviceMesh``) every term
+counts this device's local shards: the per-device plan.
+
 Every meta storage reports ``data_ptr() == 0``, so meta storages are told
 apart by their storage object (``untyped_storage()._cdata``), and the
 storages of the saved tensors are held until the step ends so that no
@@ -81,6 +84,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.convert import cnn_params_from_numpy, tree_leaves, tree_map
+from repro_torch.core.hlo_cost import _ALLOC, _DTENSOR, _fake
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import CNNModel
 
@@ -173,13 +177,19 @@ def _time_calls(fn, args, repeats: int, warmup: int, dev: torch.device) -> float
     return float(np.median(times))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This device's shard of a ``DTensor``; any other tensor itself."""
+    return getattr(t, "_local_tensor", t)
+
+
 def _nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(_local(t).numel() * t.element_size() for t in tensors)
 
 
 def _storage_key(t: torch.Tensor):
     """One key per storage: its address, or on the meta device (where
     every storage reports address 0) the storage object itself."""
+    t = _local(t)
     st = t.untyped_storage()
     return st._cdata if t.device.type == "meta" else st.data_ptr()
 
@@ -200,7 +210,7 @@ def _memory_step(fn, args, arg_tensors, grad_bytes: int, dev: torch.device):
         held = []                       # no storage key is reused meanwhile
 
         def pack(t):
-            st = t.untyped_storage()
+            st = _local(t).untyped_storage()
             saved[_storage_key(t)] = st.nbytes()
             held.append(st)
             return t
@@ -215,14 +225,24 @@ def _memory_step(fn, args, arg_tensors, grad_bytes: int, dev: torch.device):
 
 
 class _LargestOutput(TorchDispatchMode):
-    """Bytes of the largest tensor any non-view op writes."""
+    """Bytes of the largest tensor any non-view op writes (of a sharded
+    step, the largest local shard: ``DTensor`` ops are declined, as in
+    ``core/hlo_cost``, so that the mode sees the local ones).  An
+    uninitialised allocation (``empty*``) writes nothing, as the cost
+    ledger counts it; DTensor's sharding propagation allocates such meta
+    tensors of the global shapes the first time it meets an op."""
 
     def __init__(self):
         super().__init__()
         self.largest = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR) for t in types):
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
+        if (_DTENSOR is not None and _fake((args, kwargs))) \
+                or func.overloadpacket.__name__ in _ALLOC:
+            return out
         if not getattr(func, "is_view", False):
             for t in tree_leaves([out]):
                 if isinstance(t, torch.Tensor):

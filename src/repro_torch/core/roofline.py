@@ -54,6 +54,9 @@ class RooflineReport:
     # energy_j, count}} + the top ledger records
     class_breakdown: dict = dataclasses_field(default_factory=dict)
     top_ops: list = dataclasses_field(default_factory=list)
+    # the port's one key beyond the reference's: the sequence-parallel hint
+    # the step ran with (False on one device)
+    sp: bool = False
 
     def to_dict(self) -> dict:
         return asdict(self)
@@ -92,6 +95,7 @@ def roofline_from_cost(
     hw,
     plan_bytes: float,
     compile_s: float = 0.0,
+    sp: bool = False,
 ) -> RooflineReport:
     """The report of one traced step: ``cost`` is its
     :class:`~repro_torch.core.hlo_cost.HloCost`, ``hw`` a ``DeviceSpec``
@@ -134,6 +138,7 @@ def roofline_from_cost(
         per_device_hbm_gb=plan_bytes / 1e9,
         fits_hbm=plan_bytes <= hw["hbm_bytes"],
         compile_s=compile_s,
+        sp=sp,
         class_breakdown=cost.ledger.class_sums(),
         top_ops=top_ops,
     )

@@ -20,8 +20,15 @@ one-name tuple is the name.  Trees are nested dicts over
 ``models/transformer._shape_tree`` and ``cache_shapes``, walked by sorted
 key as the reference's pytree flattening walks them; a leaf's ``path`` is
 its keys joined by dots.  ``mesh`` is anything with ``axis_names`` and
-``devices.shape`` (``collectives.abstract_mesh``).  The reference's
-``to_named`` (specs to ``NamedSharding``) waits for ROADMAP queue 1 item 7c.
+``devices.shape`` (``collectives.abstract_mesh``) or a
+``torch.distributed`` ``DeviceMesh``.
+
+:func:`to_named` turns a spec tree into :class:`NamedSharding` leaves on a
+``DeviceMesh`` — the DTensor placements of each leaf, the reference's
+``jax.sharding.NamedSharding`` — and :func:`distribute_tree` places a
+state, batch or cache tree by them (the reference's ``in_shardings`` /
+``jax.device_put``).  :func:`port_params` re-keys a parameter-shaped tree
+from the reference's stacked paths to the port's parameter names.
 """
 
 from __future__ import annotations
@@ -29,8 +36,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from types import SimpleNamespace
 
+import torch
+
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.launch.mesh import dp_axes
+from repro_torch.launch.mesh import axis_names, dp_axes
 from repro_torch.models import transformer as T
 
 __all__ = [
@@ -38,6 +47,12 @@ __all__ = [
     "batch_pspecs",
     "cache_pspecs",
     "state_pspecs",
+    "to_named",
+    "NamedSharding",
+    "distribute_tree",
+    "port_params",
+    "train_state_shardings",
+    "placements",
     "fsdp_wanted",
     "LeafSharding",
     "describe_sharding",
@@ -64,8 +79,15 @@ def _map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
+def _mesh_shape(mesh) -> tuple[int, ...]:
+    """The axis sizes of a ``DeviceMesh`` or of an abstract mesh."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return tuple(int(d) for d in mesh.mesh.shape)
+    return tuple(mesh.devices.shape)
+
+
 def _axis(mesh, name: str) -> int:
-    return dict(zip(mesh.axis_names, mesh.devices.shape)).get(name, 1)
+    return dict(zip(axis_names(mesh), _mesh_shape(mesh))).get(name, 1)
 
 
 def _dp_size(mesh) -> int:
@@ -228,6 +250,149 @@ def cache_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Placements on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """One leaf's layout on a ``DeviceMesh``: the DTensor placements (one
+    per mesh dim) that its partition spec resolves to."""
+
+    mesh: object
+    placements: tuple
+    spec: tuple
+
+
+def placements(mesh, spec: tuple) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh``: an axis name puts
+    ``Shard(dim)`` on that mesh dim, a tuple of names shards one dim over
+    several mesh dims (major first, as in the mesh), every other mesh dim
+    is ``Replicate()``.  A mesh dim of size 1 stays ``Replicate()`` (the
+    same layout: its one shard is the whole dim), which keeps DTensor's
+    view rules from refusing to flatten a dim "sharded" one way."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = axis_names(mesh)
+    sizes = _mesh_shape(mesh)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in the mesh's axis "
+                             f"order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh axis {names[i]!r} shards two dims of {spec}")
+            if sizes[i] > 1:
+                out[i] = Shard(dim)
+    return tuple(out)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def to_named(mesh, spec_tree):
+    """The :class:`NamedSharding` of every spec in a tree of dicts."""
+    if isinstance(spec_tree, dict):
+        return {k: to_named(mesh, v) for k, v in spec_tree.items()}
+    if not _is_spec(spec_tree):
+        raise TypeError(f"not a partition spec: {spec_tree!r}")
+    return NamedSharding(mesh, placements(mesh, spec_tree), spec_tree)
+
+
+def port_params(cfg: ArchConfig, ref_tree) -> dict:
+    """``{port parameter name: leaf}`` of a parameter-shaped tree keyed by
+    the reference's paths (``param_pspecs``, ``state_pspecs``' slots).  A
+    stacked leaf serves every scan step, less its leading stack entry."""
+    out = {}
+    for path, shape in T.param_leaves(cfg):
+        leaf = ref_tree
+        for k in path:
+            leaf = leaf[k]
+        if path[0] in ("blocks", "encoder"):
+            for layer in range(shape[0]):
+                out[T.param_name(cfg, path, layer)] = leaf[1:]
+        else:
+            out[T.param_name(cfg, path)] = leaf
+    return out
+
+
+def train_state_shardings(cfg: ArchConfig, mesh, *, kind: str = "adamw",
+                          fsdp: bool | None = None, err: bool = False) -> dict:
+    """The port's train state ``{"params", "opt": {"step", "m"[, "v"]}
+    [, "err"]}`` as :class:`NamedSharding` leaves: :func:`state_pspecs`
+    re-keyed by parameter name (the compression residual ``err`` laid out
+    as the parameters)."""
+    spec = state_pspecs(cfg, mesh, kind=kind, fsdp=fsdp)
+    params = port_params(cfg, spec["params"])
+    opt = {"step": spec["opt"]["step"]}
+    for slot in ("m", "v"):
+        if slot in spec["opt"]:
+            opt[slot] = port_params(cfg, spec["opt"][slot])
+    tree = {"params": params, "opt": opt}
+    if err:
+        tree["err"] = dict(params)
+    return to_named(mesh, tree)
+
+
+def _distribute(t: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
+    """``t`` — the whole tensor, the same on every rank — as a DTensor:
+    this rank's slice of it, cut locally (no collective: the state, batch
+    and checkpoint leaves the port places are made alike on every rank,
+    and under ``launch.mesh.fake_world`` a scatter would leave the shard
+    unwritten).  A DTensor is redistributed."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    if isinstance(t, DTensor):
+        return t.redistribute(sh.mesh, sh.placements)
+    if not t.is_meta and t.device.type != sh.mesh.device_type:
+        t = t.to(sh.mesh.device_type)
+    local_shape, offset = compute_local_shape_and_global_offset(
+        t.shape, sh.mesh, list(sh.placements))
+    local = t
+    for dim, (start, size) in enumerate(zip(offset, local_shape)):
+        if size != t.shape[dim]:
+            local = local.narrow(dim, start, size)
+    # a copy of the slice, never a view: a narrow of dim 0 alone is
+    # already contiguous, and the shard would keep the whole tensor's storage
+    local = local.clone(memory_format=torch.contiguous_format) if local is not t else t
+    return DTensor.from_local(local, sh.mesh, list(sh.placements), run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def distribute_tree(tree, shardings):
+    """Place a state, batch or cache tree on its shardings: every tensor
+    becomes a ``DTensor`` of this rank's slice (``_distribute``: the
+    whole tensor must be the same on every rank; a ``DTensor`` is
+    redistributed), every other
+    leaf (an int ``cache_len``) is kept.  An ``nn.Module`` leaf (the
+    model) takes a ``{parameter name: NamedSharding}`` dict and has its
+    parameters replaced in place by ``DTensor`` parameters, with their
+    ``requires_grad``."""
+    if isinstance(tree, torch.nn.Module):
+        for name, sh in shardings.items():
+            mod, _, leaf = name.rpartition(".")
+            owner = tree.get_submodule(mod) if mod else tree
+            p = getattr(owner, leaf)
+            setattr(owner, leaf, torch.nn.Parameter(
+                _distribute(p.detach(), sh), requires_grad=p.requires_grad))
+        return tree
+    if isinstance(tree, dict):
+        return {k: (distribute_tree(v, shardings[k]) if k in shardings else v)
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return _distribute(tree, shardings)
+    return tree
+
+
+# ---------------------------------------------------------------------------
 # Introspection: what did the rules decide, and where did they fall back?
 # ---------------------------------------------------------------------------
 
@@ -284,8 +449,8 @@ def describe_sharding(cfg: ArchConfig, mesh, *, fsdp: bool | None = None
     planner prices replication fallbacks from here instead of silently
     accepting them.  Leaves come in the reference's order."""
     fsdp = fsdp_wanted(cfg, mesh) if fsdp is None else fsdp
-    probe = _probe_mesh(mesh.axis_names)
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    probe = _probe_mesh(axis_names(mesh))
+    sizes = dict(zip(axis_names(mesh), _mesh_shape(mesh)))
     model_sz = int(sizes.get("model", 1))
     out: list[LeafSharding] = []
 

@@ -28,17 +28,21 @@ has no pipeline schedule; ``--n-micro`` feeds its bubble model) through
 the same engine, prints the ranked table before any parameter is drawn,
 raises ``RuntimeError`` naming every refusal when no layout is runnable,
 and reports the chosen layout's costs in the admission ``info``
-(``auto_mesh``).  Building the chosen mesh waits for ROADMAP queue 1
-item 7c, so: a layout of more devices than are visible is reported and
-training runs unsharded, as in the reference on a short host; a layout
-of one device trains unsharded; a layout of N > 1 devices that are all
-visible raises ``NotImplementedError`` before any draw.
+(``auto_mesh``).  The devices are the ranks started for the job
+(``torchrun``, or the ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``
+environment; one without): a layout of N of them initialises the
+process group (``nccl`` on the cards, ``gloo`` on the CPU) unless it is
+up, builds the chosen mesh (``launch.mesh.make_mesh``) and trains on it
+(``Trainer(mesh=...)``); a layout of more devices than there are ranks
+is reported and training runs unsharded, as in the reference on a short
+host; a layout of one device trains unsharded.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
 
@@ -50,10 +54,6 @@ from repro_torch.serve.scheduler import PlacementRefused
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 __all__ = ["main"]
-
-_MESH_TODO = ("building a sharded mesh waits for ROADMAP.md, Queue 1, item 7c "
-              "(torch.distributed DeviceMesh and DTensor placements)")
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
@@ -97,8 +97,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="let the auto-sharding planner (repro_torch.planner) "
                          "pick the cheapest data×model layout of N devices "
                          "for this cell (max_pipe=1: the trainer has no "
-                         "pipeline schedule); with fewer devices visible it "
-                         "reports the plan and trains unsharded")
+                         "pipeline schedule) and train on it over the ranks "
+                         "torchrun started; with fewer ranks it reports the "
+                         "plan and trains unsharded")
     ap.add_argument("--n-micro", type=int, default=8,
                     help="microbatches per step assumed by the planner's "
                          "pipeline-bubble model")
@@ -131,8 +132,36 @@ def _engine(args):
                       device=device)
 
 
+def _world() -> int:
+    """The ranks started for this job: the initialised group's, torchrun's
+    (or the ``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` environment's), else
+    one."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if {"RANK", "WORLD_SIZE", "MASTER_ADDR"} <= os.environ.keys():
+        return int(os.environ["WORLD_SIZE"])
+    return 1
+
+
+def _build_mesh(chosen, torch_device):
+    """The chosen layout's ``DeviceMesh`` over the job's ranks, the process
+    group initialised from the environment if it is not up yet."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    if not dist.is_initialized():
+        if torch_device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", os.environ["RANK"])))
+        dist.init_process_group("nccl" if torch_device.type == "cuda" else "gloo")
+    return make_mesh(chosen.mesh_shape, chosen.mesh_axes, device=torch_device.type)
+
+
 def _auto_mesh(args, engine, shape):
-    """The planner's ranked layouts of ``--auto-mesh`` devices, printed;
+    """The planner's ranked layouts of ``--auto-mesh`` devices, printed,
+    and the chosen layout's mesh when the job has its ranks (else None);
     an empty plan raises naming every refusal."""
     from repro_torch.planner import LayoutPlanner
 
@@ -146,17 +175,22 @@ def _auto_mesh(args, engine, shape):
             + "; ".join(f"{r.layout.descriptor}: {r.reason}" for r in plan.refused))
     chosen = plan.chosen.layout
     torch_device = torch.device(args.torch_device)
-    visible = torch.cuda.device_count() if torch_device.type == "cuda" else 1
-    if chosen.n_devices > visible:
+    world = _world()
+    if chosen.n_devices > world:
         print(f"auto-mesh: {chosen.descriptor} needs {chosen.n_devices} devices, "
-              f"host has {visible} — plan reported, training unsharded")
-    elif chosen.n_devices == 1:
+              f"host has {world} — plan reported, training unsharded")
+        return plan, None
+    if chosen.n_devices == 1:
         print(f"auto-mesh: {chosen.descriptor} is one device — training unsharded")
-    else:
-        raise NotImplementedError(
-            f"auto-mesh: {chosen.descriptor} ({chosen.data}-way data × "
-            f"{chosen.model}-way model) over {visible} visible devices: {_MESH_TODO}")
-    return plan
+        return plan, None
+    if chosen.n_devices < world:
+        raise ValueError(f"auto-mesh: {chosen.descriptor} takes {chosen.n_devices} of "
+                         f"the job's {world} ranks; start as many ranks as the layout "
+                         "has devices")
+    mesh = _build_mesh(chosen, torch_device)
+    print(f"auto-mesh: built {chosen.descriptor} ({chosen.data}-way data × "
+          f"{chosen.model}-way model)")
+    return plan, mesh
 
 
 def _admission(args, engine, plan):
@@ -200,7 +234,8 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = get_config(args.arch, reduced=args.reduced)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     engine = _engine(args)
-    plan = _auto_mesh(args, engine, shape) if args.auto_mesh is not None else None
+    plan, mesh = (_auto_mesh(args, engine, shape) if args.auto_mesh is not None
+                  else (None, None))
     opt = OptimizerConfig(kind="adamw", lr=args.lr, warmup_steps=10,
                           total_steps=max(args.steps, 100))
     tcfg = TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
@@ -208,7 +243,8 @@ def main(argv: list[str] | None = None) -> dict:
     # admission runs in the Trainer's constructor: a refusal raises before
     # any parameter is drawn
     trainer = Trainer(cfg, shape, opt, tcfg, admission=_admission(args, engine, plan),
-                      device=args.torch_device)
+                      device=args.torch_device,
+                      **({"mesh": mesh} if mesh is not None else {}))
 
     # Pre-tune kernel block sizes for this cell (a meta-device trace): the
     # step then reads every block size from the device-keyed tuning cache.

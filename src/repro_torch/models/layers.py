@@ -20,9 +20,17 @@ card).  ``ssd_block`` itself runs the plain ``ssd_scan``, as the
 reference's runs its own (``layers.py:662``), so the SSD kernel is
 reached only through the tuner.
 
-The reference's ``_maybe_constrain`` (sharding hints against a
-launcher-installed mesh) has no counterpart: on one device it is the
-identity, and the port has no mesh yet (ROADMAP queue 1 item 7).
+Sharding hints: :func:`hint_mesh` installs a ``DeviceMesh`` for the call
+of a sharded step (``launch.lowering.sharded``, which the trainer, the
+dry-run and the campaign run; serving leaves it unset),
+:func:`sequence_parallel` says whether the residual stream's hint runs,
+and :func:`_maybe_constrain` redistributes a ``DTensor``
+activation to the reference's spec on it — the reference's
+``with_sharding_constraint``, with its divisibility rule.  It is the
+identity on a plain tensor or with no mesh set.  The MoE block carries
+the reference's four hints (the ``(G, E, C, ·)`` buffer over
+``("dp", "model")``, where the all-to-all comes from); the residual
+stream's sequence-parallel hint is in ``transformer._run_stack``.
 
 Parameters keep the JAX layout: ``(in, out)`` weights used as ``x @ W``.
 They are built with ``requires_grad=False`` (serving builds no graph); a
@@ -41,6 +49,7 @@ kernel for tensors on the card, its plain version for CPU tensors.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -48,8 +57,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.paged_decode import paged_decode_attention
+from repro_torch.launch.mesh import is_dtensor
 
 __all__ = [
+    "hint_mesh",
+    "sequence_parallel",
     "Attention",
     "MLP",
     "MoE",
@@ -67,6 +79,176 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30
+
+_HINT_MESH = None  # installed by hint_mesh for the call of a sharded step
+SP_HINT = True     # sequence-parallel residual stream (the reference's
+#                    perf iteration B2; off with the dry-run's --no-sp)
+
+
+@contextlib.contextmanager
+def hint_mesh(mesh, *, sp: bool = True):
+    """Install the ``DeviceMesh`` used for activation sharding hints inside
+    model code for the block (``launch.lowering.sharded`` enters it around
+    each call of a sharded step), with the sequence-parallel hint ``sp``;
+    the previous mesh is restored on exit.  With no mesh installed every
+    hint is the identity."""
+    global _HINT_MESH, SP_HINT
+    prev = _HINT_MESH, SP_HINT
+    _HINT_MESH, SP_HINT = mesh, sp
+    try:
+        yield
+    finally:
+        _HINT_MESH, SP_HINT = prev
+
+
+def sequence_parallel(mesh, sp: bool = True) -> bool:
+    """The sequence-parallel hint a step over ``mesh`` runs with: ``sp``,
+    turned off — and said so on stdout — where this torch's DTensor cannot
+    view a tensor sharded on its sequence dim (:func:`seq_shard_views`)."""
+    if sp and not seq_shard_views(mesh):
+        dims = "x".join(str(n) for n in mesh.mesh.shape)
+        print(f"sequence-parallel hint off on the {dims} mesh "
+              f"{tuple(mesh.mesh_dim_names)}: this torch's DTensor cannot view a "
+              "sequence-sharded activation", flush=True)
+        return False
+    return sp
+
+
+def seq_shard_views(mesh) -> bool:
+    """Whether this torch's DTensor flattens (B, S, ·) into (B·S, ·) with S
+    sharded, as every product over the sequence-parallel residual stream
+    does (DTensor records it as a strided shard; releases that cannot
+    raise).  Probed once per mesh on meta tensors."""
+    key = (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape), mesh.device_type)
+    if key not in _SEQ_VIEWS:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        sizes = tuple(mesh.mesh.shape)
+        if max(sizes) == 1:
+            _SEQ_VIEWS[key] = True
+        else:
+            dim = sizes.index(max(sizes))
+            pl = [Replicate()] * len(sizes)
+            pl[dim] = Shard(1)
+            n = sizes[dim]
+            x = DTensor.from_local(torch.empty(2, 2, 4, device="meta"), mesh, pl,
+                                   run_check=False, shape=(2, 2 * n, 4),
+                                   stride=(8 * n, 4, 1))
+            try:
+                x.reshape(-1, 4)
+                _SEQ_VIEWS[key] = True
+            except RuntimeError:
+                _SEQ_VIEWS[key] = False
+    return _SEQ_VIEWS[key]
+
+
+_SEQ_VIEWS: dict = {}
+
+
+def _hint_spec(shape, spec_dims) -> tuple:
+    """The reference's spec dims resolved on the hint mesh: "dp" to the
+    data-parallel axes present, an axis name kept, each only where it
+    divides the dim; else None."""
+    mesh = _HINT_MESH
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, tuple(mesh.mesh.shape)))
+    dims = []
+    for i, d in enumerate(spec_dims):
+        if d == "dp":
+            dp = tuple(a for a in ("pod", "data") if a in names)
+            n = 1
+            for a in dp:
+                n *= sizes[a]
+            dims.append((dp if len(dp) > 1 else dp[0])
+                        if dp and shape[i] % n == 0 else None)
+        elif d is not None and d in names and shape[i] % sizes[d] == 0:
+            dims.append(d)
+        else:
+            dims.append(None)
+    return tuple(dims)
+
+
+def _is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` of a sharded step (a hint mesh is
+    installed)."""
+    return _HINT_MESH is not None and is_dtensor(x)
+
+
+def _maybe_constrain(x, *spec_dims):
+    """Redistribute the DTensor ``x`` to ``spec_dims`` on the hint mesh, or
+    return ``x`` when no mesh is set or ``x`` is a plain tensor.
+
+    spec dims may be None, an axis name, or the special "dp" marker resolved
+    to the data-parallel axes present on the mesh (("pod","data")/("data",)).
+    Divisibility is checked per dim; non-divisible dims fall back to None.
+    """
+    if not _is_dtensor(x):
+        return x
+    from repro_torch.distributed.sharding import placements
+
+    mesh = _HINT_MESH
+    return x.redistribute(mesh, placements(mesh, _hint_spec(x.shape, spec_dims)))
+
+
+def _constrain_spec(x, spec):
+    """``x`` redistributed to an already resolved spec on the hint mesh."""
+    from repro_torch.distributed.sharding import placements
+
+    return x.redistribute(_HINT_MESH, placements(_HINT_MESH, spec))
+
+
+def _on_shards(fn, args, specs, out_spec):
+    """``fn`` on each rank's local shards, for code that DTensor has no
+    sharding rule for (the dispatch's ``gather``/``searchsorted``/
+    ``scatter``) or whose reshapes it cannot follow (attention's GQA
+    split of the heads).  Each DTensor argument (or tuple of them) is
+    redistributed to its resolved spec in ``specs`` (missing trailing
+    dims replicated), ``fn`` runs on the local tensors, and every tensor
+    it returns is wrapped back with ``out_spec`` (a list: one spec for
+    each result of a tuple).  Plain arguments pass
+    as they are; with none a DTensor, ``fn(*args)``."""
+    if not any(_is_dtensor(a) or (isinstance(a, tuple) and any(map(_is_dtensor, a)))
+               for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import placements
+
+    mesh = _HINT_MESH
+
+    def local(a, spec):
+        if isinstance(a, tuple):
+            return tuple(local(u, spec) for u in a)
+        if not isinstance(a, DTensor):
+            return a
+        t = a.redistribute(mesh, placements(mesh, spec)).to_local()
+        return t.wait() if hasattr(t, "wait") else t    # an async collective
+
+    def wrap(t, spec):
+        if isinstance(spec, list):          # one spec per result
+            return tuple(wrap(u, sp) for u, sp in zip(t, spec))
+        if isinstance(t, tuple):
+            return tuple(wrap(u, spec) for u in t)
+        return DTensor.from_local(t, mesh, placements(mesh, spec), run_check=False)
+
+    return wrap(fn(*(local(a, sp) for a, sp in zip(args, specs))), out_spec)
+
+
+def _groups_spec(n: int) -> tuple:
+    """The resolved spec of a leading dim of ``n`` groups (or rows) over
+    the data-parallel axes."""
+    return _hint_spec((n,), ("dp",))
+
+
+def _per_group(fn, *args):
+    """``fn`` over each rank's token groups: the reference ``vmap``s it
+    over groups laid out on DP; the leading (group) dim of every DTensor
+    argument and result over the data-parallel axes, the rest replicated."""
+    lead = next((a for a in args if _is_dtensor(a)), None)
+    if lead is None:
+        return fn(*args)
+    spec = _groups_spec(lead.shape[0])
+    return _on_shards(fn, args, [spec] * len(args), spec)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -276,6 +458,25 @@ def blocked_attention(
     """
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
+    if _is_dtensor(q) or _is_dtensor(k):
+        # each rank attends over its rows and kv-head groups (heads on the
+        # model axis only where the kv heads divide it: a GQA group never
+        # splits); the mask and the softmax stay on the local shards
+        b = _groups_spec(B)[0]
+        h = _hint_spec((Hkv,), ("model",))[0]
+        act = (b, None, h, None)
+
+        def local(q, k, v, qp, kp, kvl):
+            return blocked_attention(q, k, v, q_positions=qp, k_positions=kp,
+                                     mask_kind=mask_kind, chunk=chunk,
+                                     prefix=prefix, kv_len=kvl, block_q=block_q,
+                                     scale=scale)
+
+        rows = lambda t: (b,) if torch.is_tensor(t) and t.ndim > 1 else ()  # noqa: E731
+        return _on_shards(local, (q, k, v, q_positions, k_positions, kv_len),
+                          (act, act, act, rows(q_positions), rows(k_positions),
+                           (b,) if torch.is_tensor(kv_len) and kv_len.ndim else ()),
+                          act)
     rep = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     qr = (q * scale).reshape(B, Sq, Hkv, rep, Dh)
@@ -326,10 +527,17 @@ def attention_block(
     B, S, D = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
 
-    q = (x @ p.wq).view(B, S, H, Dh)
     src = kv_source if kv_source is not None else x
-    k = (src @ p.wk).view(B, src.shape[1], Hkv, Dh)
-    v = (src @ p.wv).view(B, src.shape[1], Hkv, Dh)
+    q, k, v = x @ p.wq, src @ p.wk, src @ p.wv
+    if _is_dtensor(q):
+        # heads on the model axis only where the kv heads divide it (a GQA
+        # group whole on a rank), so that the head split below is a view
+        # of each shard
+        heads = (_groups_spec(B)[0], None, _hint_spec((Hkv,), ("model",))[0])
+        q, k, v = (_constrain_spec(t, heads) for t in (q, k, v))
+    q = q.view(B, S, H, Dh)
+    k = k.view(B, src.shape[1], Hkv, Dh)
+    v = v.view(B, src.shape[1], Hkv, Dh)
     if cfg.attn_bias:
         q = q + p.bq.view(H, Dh)
         k = k + p.bk.view(Hkv, Dh)
@@ -481,6 +689,8 @@ def moe_block(x, p, cfg):
     G, factor = _tuned_moe_dispatch(B, S, cfg, x.dtype)
     Tg = (B // G) * S
     C = moe_capacity(Tg, E, K, factor)
+    if _is_dtensor(x):      # groups split the batch: rows on DP only if G divides
+        x = _maybe_constrain(x, "dp" if _groups_spec(G)[0] else None, None, None)
     xg = x.reshape(G, Tg, D)
 
     logits = xg.float() @ p.router.float()                  # (G, Tg, E)
@@ -488,18 +698,26 @@ def moe_block(x, p, cfg):
     gates, ids = _top_k(probs, K)                            # (G, Tg, K)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    buf, route = _moe_dispatch_group(xg, ids, E, K, C)       # (G, E, C, D)
+    buf, route = _per_group(_moe_dispatch_group, xg, ids, E, K, C)  # (G, E, C, D)
+    # Expert-parallel layout: groups on DP, experts on the model axis.  The
+    # reshard from (G@dp, E) to (G@dp, E@model) IS the GShard all-to-all.
+    buf = _maybe_constrain(buf, "dp", "model", None, None)
     h = F.silu(torch.einsum("gecd,edf->gecf", buf, p.gate))
     h = h * torch.einsum("gecd,edf->gecf", buf, p.up)
+    h = _maybe_constrain(h, "dp", "model", None, None)
     out_buf = torch.einsum("gecf,efd->gecd", h, p.down)      # (G, E, C, D)
+    out_buf = _maybe_constrain(out_buf, "dp", "model", None, None)
 
-    out = _moe_combine_group(out_buf, route, gates, K)       # (G, Tg, D)
+    out = _per_group(_moe_combine_group, out_buf, route, gates, K)  # (G, Tg, D)
+    out = _maybe_constrain(out, "dp", None, None)
     aux = _load_balance_loss(probs.reshape(-1, E), ids.reshape(-1, K), E)
     return out.reshape(B, S, D), aux
 
 
 def _load_balance_loss(probs, ids, E):
     """Switch-style auxiliary load-balancing loss (returned for the trainer)."""
+    if _is_dtensor(ids):            # the token counts need every rank's ids
+        ids = ids.full_tensor()
     counts = torch.zeros(E, device=probs.device).index_add_(
         0, ids.reshape(-1), torch.ones(ids.numel(), device=probs.device))
     frac_tokens = counts / ids.numel()
@@ -581,6 +799,50 @@ def ssd_scan(xh, a, Bm, Cm, chunk: int, initial_state=None):
     return y.to(xh.dtype), carry
 
 
+def _sharded_scan(xh, a, Bm, Cm, chunk: int, initial_state=None):
+    """:func:`ssd_scan`, on each rank's rows and heads under a hint mesh
+    (the scan's chunk reshapes are local: DTensor cannot split a
+    sequence-parallel shard into chunks); plain tensors: ``ssd_scan``."""
+    if not _is_dtensor(xh):
+        return ssd_scan(xh, a, Bm, Cm, chunk, initial_state=initial_state)
+    b = _groups_spec(xh.shape[0])[0]
+    h = _hint_spec(xh.shape[2:3], ("model",))[0]
+
+    def local(xh, a, Bm, Cm, st):
+        return ssd_scan(xh, a, Bm, Cm, chunk, initial_state=st)
+
+    return _on_shards(local, (xh, a, Bm, Cm, initial_state),
+                      ((b, None, h, None), (b, None, h), (b,), (b,), (b, h)),
+                      [(b, None, h, None), (b, h)])
+
+
+def _ssd_step(xh, a, Bm, Cm, state):
+    """One step of the SSD recurrence (S == 1), in f32: the new state and
+    its output y (B, 1, H, P)."""
+    H, G = xh.shape[2], Bm.shape[2]
+    st = state.float()                                       # (B,H,P,N)
+    dec = torch.exp(a[:, 0])                                 # (B,H)
+    Br = Bm[:, 0].repeat_interleave(H // G, dim=1) if G != H else Bm[:, 0]
+    Cr = Cm[:, 0].repeat_interleave(H // G, dim=1) if G != H else Cm[:, 0]
+    upd = torch.einsum("bhp,bhn->bhpn", xh[:, 0].float(), Br.float())
+    st = st * dec[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", st, Cr.float())[:, None]
+    return y, st
+
+
+def _sharded_step(xh, a, Bm, Cm, state):
+    """:func:`_ssd_step` on each rank's rows and heads under a hint mesh
+    (its einsums flatten the head dim, which DTensor may refuse to do
+    over a shard); plain tensors: ``_ssd_step``."""
+    if not _is_dtensor(xh):
+        return _ssd_step(xh, a, Bm, Cm, state)
+    b = _groups_spec(xh.shape[0])[0]
+    h = _hint_spec(xh.shape[2:3], ("model",))[0]
+    return _on_shards(_ssd_step, (xh, a, Bm, Cm, state),
+                      ((b, None, h, None), (b, None, h), (b,), (b,), (b, h)),
+                      [(b, None, h, None), (b, h)])
+
+
 def ssd_block(x, p, cfg, *, cache=None, valid=None):
     """Mamba-2 block: in_proj → causal conv1d → SSD → gated norm → out_proj.
 
@@ -598,6 +860,9 @@ def ssd_block(x, p, cfg, *, cache=None, valid=None):
 
     z = x @ p.w_z
     xbc = torch.cat([x @ p.w_x, x @ p.w_B, x @ p.w_C], dim=-1)
+    # the conv's channels whole on every rank (the identity unsharded):
+    # some DTensor releases cannot pad a tensor sharded on another dim
+    xbc = _maybe_constrain(xbc, "dp", None, None)
     dt = F.softplus((x @ p.w_dt).float() + p.dt_bias.float())
     if valid is not None:  # pad steps feed zero taps into the causal conv
         xbc = torch.where(valid[..., None], xbc, 0)
@@ -626,19 +891,12 @@ def ssd_block(x, p, cfg, *, cache=None, valid=None):
 
     chunk = _tuned_ssm_chunk(xh, N, cfg.ssm_chunk) if S > 1 else cfg.ssm_chunk
     if cache is None:
-        y, _ = ssd_scan(xh, a, Bm, Cm, chunk)
+        y, _ = _sharded_scan(xh, a, Bm, Cm, chunk)
     elif S > 1:  # prefill with cache: chunked scan seeded by the cached state
-        y, final_state = ssd_scan(xh, a, Bm, Cm, chunk,
-                                  initial_state=cache["state"])
+        y, final_state = _sharded_scan(xh, a, Bm, Cm, chunk, cache["state"])
         cache["state"].copy_(final_state)
     else:        # single-step recurrence (S == 1)
-        st = cache["state"].float()                          # (B,H,P,N)
-        dec = torch.exp(a[:, 0])                             # (B,H)
-        Br = Bm[:, 0].repeat_interleave(H // G, dim=1) if G != H else Bm[:, 0]
-        Cr = Cm[:, 0].repeat_interleave(H // G, dim=1) if G != H else Cm[:, 0]
-        upd = torch.einsum("bhp,bhn->bhpn", xh[:, 0].float(), Br.float())
-        st = st * dec[..., None, None] + upd
-        y = torch.einsum("bhpn,bhn->bhp", st, Cr.float())[:, None]
+        y, st = _sharded_step(xh, a, Bm, Cm, cache["state"])
         cache["state"].copy_(st)
 
     y = y + xs.to(y.dtype) * p.D.to(y.dtype)[None, None, :, None]

@@ -59,11 +59,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import layers as _L
 from repro_torch.models.layers import (
     MLP,
     SSM,
     Attention,
     MoE,
+    _maybe_constrain,
     _param,
     attention_block,
     mlp_block,
@@ -353,12 +355,20 @@ def _step_caches(cache, layer: int, n_subs: int) -> list:
             for i in range(n_subs)]
 
 
+def _seq(h):
+    """``h`` (B, S, D) with its sequence whole: batch on DP, the rest
+    replicated (the identity without a hint mesh)."""
+    return _maybe_constrain(h, "dp", None, None)
+
+
 def _block(x, aux, step, cfg, plan, positions, mask_kind, memory, caches,
           cache_len, pos_offset, block_table, ssm_valid):
     """One scan step: every (mixer, ffn) sublayer of the plan, each with
-    its residual; MoE aux losses are added to ``aux``."""
+    its residual; MoE aux losses are added to ``aux``.  Under a hint mesh
+    each sublayer's normed input is gathered over the sequence (``_seq``:
+    the all-gather that opens a sequence-parallel sublayer)."""
     for (mixer, ffn), blk, sc in zip(plan, _subs(step), caches):
-        h = rms_norm(x, blk.ln1)
+        h = _seq(rms_norm(x, blk.ln1))
         if mixer.startswith("attn"):
             mo, _ = attention_block(
                 h, blk.attn, cfg, positions=positions, mask_kind=mask_kind,
@@ -367,16 +377,16 @@ def _block(x, aux, step, cfg, plan, positions, mask_kind, memory, caches,
             x = x + mo
             if mixer == "attn_cross":
                 co, _ = attention_block(
-                    rms_norm(x, blk.ln_cross), blk.cross, cfg,
+                    _seq(rms_norm(x, blk.ln_cross)), blk.cross, cfg,
                     positions=positions, mask_kind="full", kv_source=memory)
                 x = x + co
         else:
             mo, _ = ssd_block(h, blk.ssm, cfg, cache=sc, valid=ssm_valid)
             x = x + mo
         if ffn == "mlp":
-            x = x + mlp_block(rms_norm(x, blk.ln2), blk.mlp)
+            x = x + mlp_block(_seq(rms_norm(x, blk.ln2)), blk.mlp)
         elif ffn == "moe":
-            fo, a = moe_block(rms_norm(x, blk.ln2), blk.moe, cfg)
+            fo, a = moe_block(_seq(rms_norm(x, blk.ln2)), blk.moe, cfg)
             x = x + fo
             aux = aux + a
     return x, aux
@@ -399,6 +409,12 @@ def _run_stack(blocks, x, cfg, plan, *, positions, mask_kind, memory=None,
                 block_table, ssm_valid)
         x, aux = (checkpoint(_block, *args, use_reentrant=False,
                              preserve_rng_state=False) if remat else _block(*args))
+        # Sequence parallelism (the reference's perf iteration B2): the
+        # carry — the remat-saved residual stream — sharded over the model
+        # axis on its sequence dim.  The identity without a hint mesh or
+        # when S doesn't divide (decode S=1).
+        if _L.SP_HINT:
+            x = _maybe_constrain(x, "dp", "model", None)
     return x, aux
 
 
@@ -411,7 +427,7 @@ def _prefill_like(cfg, params, batch, *, max_len, want_cache):
     _, plan = layer_plan(cfg)
     tokens = batch["tokens"]
     B = tokens.shape[0]
-    x = params.embed[tokens.long()]
+    x = _embed(params.embed, tokens)
     if cfg.n_prefix:
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -433,11 +449,81 @@ def _prefill_like(cfg, params, batch, *, max_len, want_cache):
 
     cache = (init_cache(cfg, B, max_len, device=x.device, conv_dtype=x.dtype)
              if want_cache else None)
+    if cache is not None and _L._is_dtensor(x):
+        cache = _place_cache(cfg, cache, B, max_len)
     x, aux = _run_stack(params.blocks, x, cfg, plan, positions=positions,
                         mask_kind=_mask_kind(cfg), memory=memory, cache=cache,
                         cache_len=0 if want_cache else None,
                         pos_offset=pos_offset)
-    return rms_norm(x, params.final_norm), aux, cache, memory
+    return _seq(rms_norm(x, params.final_norm)), aux, cache, memory
+
+
+def _embed(table, tokens):
+    """The embedding rows of ``tokens``: an index into the table, or, on a
+    DTensor table, the vocab-parallel lookup on each rank's shard
+    (:func:`_vocab_parallel_embed`) under a hint mesh."""
+    if _L._is_dtensor(table):
+        return _vocab_parallel_embed(table, tokens)
+    return table[tokens.long()]
+
+
+def _vocab_parallel_embed(table, tokens):
+    """Megatron's vocab-parallel embedding, written out: each rank looks up
+    the tokens its rows of the table hold (the others read a zero row),
+    the ranks' results summed over the vocab's mesh dims and scattered over
+    the hidden dim (a reduce-scatter); rows over the data-parallel axes as
+    the batch.  Exact: every token is
+    one rank's row plus zeros.  (DTensor's own rules for the index or for
+    ``F.embedding`` fail in one release or another on its backward or its
+    reduction.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import placements
+
+    mesh = table.device_mesh
+    vocab = [i for i, pl in enumerate(table.placements) if pl == Shard(0)]
+    table = table.redistribute(mesh, [Shard(0) if i in vocab else Replicate()
+                                      for i in range(mesh.ndim)])
+    rows = _L._hint_spec(tokens.shape[:1], ("dp",))
+    tok_pl = list(placements(mesh, rows))
+    tok = (tokens.redistribute(mesh, tok_pl) if _L._is_dtensor(tokens)
+           else DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False).redistribute(mesh, tok_pl))
+    local_tok = tok.to_local().long()
+    # the table's gradient on this rank holds only its own rows' tokens:
+    # a partial sum over the mesh dims the batch is split on
+    local = table.to_local(grad_placements=[
+        Shard(0) if i in vocab else Partial() if isinstance(tok_pl[i], Shard)
+        else Replicate() for i in range(mesh.ndim)])
+    if vocab:
+        n = local.shape[0]
+        lo = 0
+        for i in vocab:                      # the shard's first row
+            lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+        lo *= n
+        held = (local_tok >= lo) & (local_tok < lo + n)
+        out = torch.where(held[..., None], local[(local_tok - lo).clamp(0, n - 1)], 0)
+    else:
+        out = local[local_tok]
+    pl = [Partial() if i in vocab else tok_pl[i] for i in range(mesh.ndim)]
+    # reduced over the vocab's dims at once, scattered over the hidden dim
+    # where it divides (a reduce-scatter): a Partial residual stream would
+    # carry the reduction into every later op
+    d = table.shape[1]
+    out_pl = [(Shard(2) if d % mesh.size(i) == 0 else Replicate()) if i in vocab
+              else tok_pl[i] for i in range(mesh.ndim)]
+    return DTensor.from_local(out, mesh, pl, run_check=False).redistribute(mesh, out_pl)
+
+
+def _place_cache(cfg, cache, B: int, max_len: int) -> dict:
+    """The prefill cache of a sharded forward placed on the hint mesh by
+    the reference's ``cache_pspecs`` (its prefill's ``out_shardings``)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding as sh
+
+    mesh = _L._HINT_MESH
+    spec = sh.cache_pspecs(cfg, ShapeSpec("cache", max_len, B, "prefill"), mesh)
+    return sh.distribute_tree(cache, sh.to_named(mesh, spec))
 
 
 def _logits(cfg, params, x):
@@ -459,8 +545,10 @@ def forward(params, batch, cfg: ArchConfig):
 def _ce_sums(logits, targets):
     """(lse, lse - gold) of f32 ``logits`` (…, V) at int ``targets`` (…)."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return lse, lse - gold
+    # the gold logit keeps its last dim until the subtraction: on logits
+    # sharded over the vocab it is a masked partial sum, reduced there
+    gold = torch.gather(logits, -1, targets.long()[..., None])
+    return lse, (lse[..., None] - gold)[..., 0]
 
 
 def _chunk_ce(xc, head, tc, vc):
@@ -538,7 +626,7 @@ def decode_step(params, cache, batch, cfg: ArchConfig):
     tokens, cache_len = batch["tokens"], batch["cache_len"]
     pos_offset = batch.get("pos_offset")
     B, S = tokens.shape
-    x = params.embed[tokens.long()]
+    x = _embed(params.embed, tokens)
     steps = torch.arange(S, device=x.device)
     if (torch.is_tensor(cache_len) and cache_len.ndim) or pos_offset is not None:
         cl = torch.as_tensor(cache_len, device=x.device).expand(B)

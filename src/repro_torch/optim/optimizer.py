@@ -10,6 +10,10 @@ clipped gradients are cast back to the gradient's dtype before ``m`` and
 ``v`` read them; weight decay is added to the update of every leaf; the
 new parameters are rounded back to the parameter dtype.
 
+On a mesh every leaf is a ``DTensor``: each gradient is first laid out as
+its slot (``_placed_like``: a reduce-scatter onto the ZeRO slots), and the
+in-place writes keep every leaf's placements.
+
 Where the reference returns new arrays, ``apply_updates`` writes the
 parameters and the slots in place (the arrays a jit would donate) and
 returns the same objects, so a full-width step holds one copy of the
@@ -80,6 +84,17 @@ def init_opt_state(params, cfg: OptimizerConfig) -> dict:
     return state
 
 
+def _placed_like(g, m):
+    """The gradient laid out as its slot: on a mesh (DTensors), a partial
+    or replicated gradient reduced or sliced to the slot's placements
+    (ZeRO's reduce-scatter) before the update combines them; plain
+    tensors as they are."""
+    placements = getattr(m, "placements", None)
+    if placements is None or getattr(g, "placements", placements) == placements:
+        return g
+    return g.redistribute(m.device_mesh, placements)
+
+
 @torch.no_grad()
 def apply_updates(params, grads, opt_state, cfg: OptimizerConfig):
     """Returns (params, opt_state, metrics), the first two updated in place."""
@@ -99,7 +114,7 @@ def apply_updates(params, grads, opt_state, cfg: OptimizerConfig):
         c2 = 1.0 - torch.pow(b2, step.float())
 
         def upd(p, g, m, v):
-            g = g.float()
+            g = _placed_like(g, m).float()
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * torch.square(g))
             u = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
@@ -111,6 +126,7 @@ def apply_updates(params, grads, opt_state, cfg: OptimizerConfig):
         return params, opt_state, metrics
 
     def upd_sgdm(p, g, m):
+        g = _placed_like(g, m)
         m.copy_(cfg.momentum * m + g.float())
         p.copy_((p.float() - lr * m).to(p.dtype))
 

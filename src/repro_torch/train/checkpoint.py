@@ -15,8 +15,13 @@ view (npz has no bfloat16) and flagged ``bf16`` in the manifest.
 Properties, all tested: atomic visibility (a crash mid-write leaves a
 ``.tmp`` directory, which ``latest_step`` ignores), keep-N garbage
 collection, and exact resume (the step is in the manifest).  Leaves may
-be tensors on any device or numpy arrays; they restore as CPU tensors in
-a tree of nested dicts, one level for each ``/`` of the key.
+be tensors on any device, ``DTensor``s (saved whole: every rank gathers
+each one) or numpy arrays; in a process group rank 0 writes and the ranks
+meet at a barrier; they restore as CPU tensors in a tree of nested dicts, one level
+for each ``/`` of the key.  Given a ``template`` (the target tree) and
+``shardings`` (a matching tree of ``distributed.sharding.NamedSharding``),
+``restore_checkpoint`` is the reference's elastic restore: a state saved
+from one mesh is placed on another mesh's placements.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import shutil
 
 import numpy as np
 import torch
+
+from repro_torch.launch.mesh import is_dtensor, is_rank0
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "list_steps"]
 
@@ -51,6 +58,8 @@ def _paths(tree, prefix=()):
 def _to_numpy(leaf) -> tuple[np.ndarray, bool]:
     """(array to store, whether it is a bf16 leaf stored as uint16)."""
     if torch.is_tensor(leaf):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), True
@@ -62,6 +71,19 @@ def _to_numpy(leaf) -> tuple[np.ndarray, bool]:
 
 
 def save_checkpoint(directory: str, step: int, state, *, keep: int = 3) -> str:
+    name = f"step_{step:09d}"
+    final = os.path.join(directory, name)
+    flat = {"/".join(path): _to_numpy(leaf) for path, leaf in _paths(state)}
+    if is_rank0():                      # every rank gathered; rank 0 writes
+        _write(directory, step, flat, keep)
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        torch.distributed.barrier()
+    return final
+
+
+def _write(directory: str, step: int, flat: dict, keep: int) -> None:
+    """Write ``{key: (array, bf16)}`` as the step's directory, atomically,
+    then keep the newest ``keep``."""
     os.makedirs(directory, exist_ok=True)
     name = f"step_{step:09d}"
     tmp = os.path.join(directory, name + ".tmp")
@@ -70,12 +92,11 @@ def save_checkpoint(directory: str, step: int, state, *, keep: int = 3) -> str:
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    flat = {"/".join(path): leaf for path, leaf in _paths(state)}
     keys = sorted(flat)
     manifest = {"step": step, "leaves": {}, "n_shards": 0}
     shard, shard_idx = {}, 0
     for i, k in enumerate(keys):
-        a, bf16 = _to_numpy(flat[k])
+        a, bf16 = flat[k]
         entry = {"shape": list(a.shape),
                  "dtype": "bfloat16" if bf16 else str(a.dtype), "shard": shard_idx}
         if bf16:
@@ -96,7 +117,6 @@ def save_checkpoint(directory: str, step: int, state, *, keep: int = 3) -> str:
     steps = list_steps(directory)
     for s in steps[:-keep] if keep else []:
         shutil.rmtree(os.path.join(directory, f"step_{s:09d}"), ignore_errors=True)
-    return final
 
 
 def list_steps(directory: str) -> list[int]:
@@ -115,9 +135,15 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, step: int | None = None):
+def restore_checkpoint(directory: str, step: int | None = None, *,
+                       template=None, shardings=None):
     """Load a checkpoint → (step, tree): nested dicts keyed by the parts of
-    each ``/``-joined key, with CPU tensor leaves in their stored dtypes."""
+    each ``/``-joined key, with CPU tensor leaves in their stored dtypes.
+    ``template`` (a tree of nested dicts and lists with the target
+    structure) rebuilds that tree from the keys of its leaves;
+    ``shardings`` (a matching tree of ``NamedSharding``) re-places every
+    leaf as a ``DTensor`` on a possibly different mesh (elastic
+    restore)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -139,4 +165,24 @@ def restore_checkpoint(directory: str, step: int | None = None):
                     node = node.setdefault(k, {})
                 node[name] = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
                               if entry.get("bf16") else torch.from_numpy(a))
-    return manifest["step"], tree
+    if template is None:
+        return manifest["step"], tree
+
+    def rebuild(t, path=()):
+        if isinstance(t, dict):
+            return {k: rebuild(v, path + (str(k),)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(rebuild(v, path + (str(i),)) for i, v in enumerate(t))
+        node = tree
+        for k in path:
+            if not isinstance(node, dict) or k not in node:
+                raise KeyError(f"checkpoint missing leaf {'/'.join(path)}")
+            node = node[k]
+        return node
+
+    out = rebuild(template)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute_tree
+
+        out = distribute_tree(out, shardings)
+    return manifest["step"], out

@@ -14,7 +14,15 @@ Behaviours, all exercised by tests:
     ``admission(cfg, shape) -> (ok, info)`` says no.
 
 The step is eager: ``loss_fn`` → ``backward`` → optional
-``compress_grads`` → ``apply_updates``.  The state is
+``compress_grads`` → ``apply_updates``.  With a ``mesh`` (a
+``DeviceMesh`` of the process group's ranks) the state is placed on it as
+``DTensor``s by ``state_shardings`` (default: the reference's
+``state_pspecs`` for the optimizer, ``distributed.sharding
+.train_state_shardings``), each step's batch by ``batch_pspecs``, and
+the step runs on DTensors as ``launch.lowering.sharded`` runs it (the
+activation hint mesh installed for the call, implicit replication; the
+sequence-parallel hint said off where this torch cannot run it); the
+device is the mesh's device type.  The state is
 ``{"params": LM, "opt": {"step", "m", "v"}, "err"}``, the slots keyed by
 parameter name; the model's parameters require grad, and their
 gradient buffers are allocated with the state and accumulated into in
@@ -30,7 +38,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.convert import train_state_from_jax, train_state_to_tree
+from repro_torch.convert import _host, train_state_from_jax, train_state_to_tree
 from repro_torch.data.pipeline import batch_to_device, make_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
@@ -39,10 +47,6 @@ from repro_torch.optim.optimizer import OptimizerConfig, apply_updates, init_opt
 from repro_torch.train import checkpoint as ckpt
 
 __all__ = ["TrainerConfig", "Trainer", "StragglerMonitor"]
-
-_MESH_TODO = ("sharded training (mesh, state_shardings) waits on the port of "
-              "distributed/, launch/ and planner/ (ROADMAP.md, Queue 1, item 7)")
-
 
 @dataclass
 class TrainerConfig:
@@ -88,9 +92,10 @@ class Trainer:
         admission=None,   # callable(cfg, shape) -> (ok, info)
         device="cuda",
     ):
-        if mesh is not None or state_shardings is not None:
-            raise NotImplementedError(_MESH_TODO)
-        self.device = resolve_device(device)
+        if state_shardings is not None and mesh is None:
+            raise ValueError("state_shardings place the state on a mesh: pass mesh")
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device_type if mesh is not None else device)
         self.cfg = cfg
         self.shape = shape
         self.opt_cfg = opt_cfg or OptimizerConfig(kind="adamw", warmup_steps=10,
@@ -105,10 +110,30 @@ class Trainer:
                 raise RuntimeError(f"admission denied: {info}")
 
         self._compression = self.tcfg.grad_compression
+        self.state_shardings = state_shardings
+        if mesh is not None:
+            from repro_torch.distributed import sharding as sh
+            from repro_torch.launch.lowering import sharded
+
+            if state_shardings is None:
+                self.state_shardings = sh.train_state_shardings(
+                    cfg, mesh, kind=self.opt_cfg.kind,
+                    err=self._compression is not None)
+            self._batch_shardings = sh.to_named(mesh, sh.batch_pspecs(cfg, shape, mesh))
+            self._sharded_step = sharded(self._local_step, mesh)
 
     # ------------------------------------------------------------------
 
     def _step(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        if self.mesh is None:
+            return self._local_step(state, batch)
+        from repro_torch.distributed.sharding import distribute_tree
+
+        state, metrics = self._sharded_step(
+            state, distribute_tree(batch, self._batch_shardings))
+        return state, {k: _host(v) for k, v in metrics.items()}
+
+    def _local_step(self, state: dict, batch: dict) -> tuple[dict, dict]:
         model = state["params"]
         params = dict(model.named_parameters())
         for p in params.values():
@@ -121,6 +146,15 @@ class Trainer:
                                                  ratio=self._compression)
         _, state["opt"], om = apply_updates(params, grads, state["opt"], self.opt_cfg)
         return state, {"loss": loss.detach(), "ce": metrics["ce"].detach(), **om}
+
+    def place(self, state: dict) -> dict:
+        """Put a state on the trainer's mesh (the identity without one),
+        then turn on the model's gradients and allocate their buffers."""
+        if self.mesh is not None:
+            from repro_torch.distributed.sharding import distribute_tree
+
+            state = distribute_tree(state, self.state_shardings)
+        return self._trainable(state)
 
     @staticmethod
     def _trainable(state: dict) -> dict:
@@ -136,7 +170,7 @@ class Trainer:
         state = {"params": model, "opt": init_opt_state(params, self.opt_cfg)}
         if self._compression is not None:
             state["err"] = init_error_state(params)
-        return self._trainable(state)
+        return self.place(state)
 
     def restore_or_init(self) -> tuple[int, dict]:
         d = self.tcfg.ckpt_dir
@@ -149,7 +183,7 @@ class Trainer:
                                          dtype=T.DTYPE)
             if self._compression is None:
                 state.pop("err", None)
-            return step + 1, self._trainable(state)
+            return step + 1, self.place(state)
         return 0, self.init_state()
 
     def save(self, step: int, state: dict) -> str:

@@ -214,10 +214,33 @@ def test_runner_default_device_raises_without_cuda(name, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["roofline"])
-def test_run_names_the_roadmap_item_of_a_bench_not_ported(name, capsys):
-    with pytest.raises(SystemExit):
-        bench_run.main(["--only", f"dnnmem,{name}"])
-    assert "ROADMAP queue 1 item" in capsys.readouterr().err
+def test_run_names_the_roadmap_item_of_a_bench_not_ported(name, capsys, monkeypatch,
+                                                          tmp_path):
+    """No bench is left unported: ``--only roofline`` prints the roofline
+    table of the dry-run's ledger, line for line as the reference's
+    ``benchmarks/roofline_table.py`` prints the same records."""
+    import json
+
+    from benchmarks import roofline_table as ref_table
+    from repro_torch.bench import roofline_table
+
+    assert bench_run.NOT_PORTED == {}
+    cell = {"arch": "qwen3-4b", "shape": "train_4k", "mesh": "16x16", "compute_s": 0.51,
+            "memory_s": 4.2, "collective_s": 0.3, "dominant": "memory", "step_s": 4.2,
+            "useful_ratio": 0.61, "per_device_hbm_gb": 7.25, "fits_hbm": True}
+    recs = [cell, {**cell, "mesh": "2x16x16", "fits_hbm": False},
+            {"arch": "qwen3-4b", "shape": "long_500k", "mesh": "16x16", "skipped": "why"},
+            {"arch": "mamba2-780m", "shape": "train_4k", "mesh": "16x16", "failed": True}]
+    ledger = tmp_path / "dryrun.jsonl"
+    ledger.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    monkeypatch.setattr(roofline_table, "DRYRUN_PATH", str(ledger))
+    bench_run.main(["--only", name, "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    mine = out[out.index(f"=== {name} ===") + 1:-1]
+    monkeypatch.setattr(ref_table, "load_reports", lambda: [dict(r) for r in recs])
+    theirs = []
+    ref_table.run(theirs.append)
+    assert mine == theirs and len(theirs) == 7
 
 
 def test_collect_grids_are_the_reference_grids():

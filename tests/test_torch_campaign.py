@@ -3,8 +3,8 @@ reference's (``repro.campaign``): planning, resumable running, fitting,
 the engine wiring, the CLI and the launcher's ``--lm-forest``.
 
 The classes mirror ``tests/test_campaign.py`` case by case, on the port
-(the reference's dry-run ledger case has no counterpart: the dry run
-waits for ROADMAP queue 1 item 7c).  The ``Parity*`` classes hold the two
+(the reference's dry-run ledger case is in ``tests/test_torch_dryrun.py``
+with the port's dry run).  The ``Parity*`` classes hold the two
 packages together on identical inputs.  Everything but a measurement is
 framework-free and held exactly (``==``): plans, plan hashes, cell keys,
 skip reasons, ledgers, features, forest predictions and ``meta``, fitted

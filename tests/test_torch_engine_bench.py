@@ -17,7 +17,10 @@ the reference's (``benchmarks/engine_bench.py``) on the CPU.
   an XLA compile there, a meta-tensor trace here).  The reference's
   campaign needs at least 6 recorded cells to fit, so the ledger holds
   its smoke plan at ``subsample=8`` (4 cells would skip the fit in both).
-* ``collective_calibration`` names ROADMAP item 7c.
+* ``collective_calibration``: the reference's >1-device smoke grid over
+  two ``gloo`` CPU ranks, the reference's rows and keys, the multi-device
+  cells with collective bytes and the 1x1 ones with none; a second call
+  resumes (measures nothing) and fits again.
 """
 
 import hashlib
@@ -152,6 +155,24 @@ def test_campaign_default_device_raises_without_cuda(monkeypatch, tmp_path):
         engine_bench.campaign_accuracy(ledger_path=str(tmp_path / "l.jsonl"))
 
 
-def test_collective_calibration_names_item_7c():
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        engine_bench.collective_calibration()
+def test_collective_calibration_names_item_7c(tmp_path):
+    from repro_torch.campaign import CampaignLedger
+
+    ledger = str(tmp_path / "collective.jsonl")
+    lines = []
+    out = engine_bench.collective_calibration(lines.append, ledger_path=ledger)
+    assert set(out) == {"collective_cells", "collective_column_fitted",
+                        "collective_coeff", "collective_coeff_aggregate", "n_records"}
+    assert out["n_records"] == 6 and out["collective_cells"] == 4
+    assert out["collective_column_fitted"] and out["collective_coeff"] >= 0
+    assert [ln.split(",")[0] for ln in lines] == [
+        "campaign/collective_cells", "campaign/collective_column_fitted",
+        "campaign/collective_coeff_s_per_byte"]
+    recs = CampaignLedger(ledger).records("ok")
+    assert len(recs) == 6 and all(r["phi_ms"] > 0 for r in recs)
+    for r in recs:
+        assert r["n_devices"] == (1 if r["mesh"] == "1x1" else 2)
+        assert (r["collective_bytes"] > 0) == (r["mesh"] != "1x1")
+    again = engine_bench.collective_calibration(lambda _: None, ledger_path=ledger)
+    assert len(CampaignLedger(ledger).records()) == 6
+    assert again["n_records"] == 6 and again["collective_cells"] == 4

@@ -17,8 +17,8 @@ configs, the sharding rules and a base estimate, so it is held exactly:
 Then the launcher on ``--torch-device cpu --reduced``: ``--auto-mesh 2``
 (more devices than the host has) and ``--auto-mesh 1`` train with the
 unflagged run's losses, an empty plan raises before any parameter is
-drawn, a layout of visible devices raises naming ROADMAP item 7c, and the
-admission ``info`` carries the chosen layout.
+drawn, a layout of as many devices as the job has ranks is built and
+trained on, and the admission ``info`` carries the chosen layout.
 """
 
 import json
@@ -268,13 +268,36 @@ def test_auto_mesh_empty_plan_raises_before_any_draw(pinned, monkeypatch, capsys
 
 
 def test_auto_mesh_over_visible_devices_names_item_7c(pinned, monkeypatch, capsys):
-    draws = []
+    """A layout of as many devices as the job has ranks is built
+    (``_build_mesh``: the process group and ``make_mesh``) and trained on:
+    the Trainer gets the mesh; cards beyond the ranks do not count."""
+    draws, seen = [], {}
     monkeypatch.setattr(T, "init_params", lambda *a, **k: draws.append(1))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    argv = [a for a in LAUNCH if a not in ("--torch-device", "cpu")]
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        launch.main(argv + ["--auto-mesh", "2"])
-    assert "phi_ms" in capsys.readouterr().out and not draws
+    mesh = object()
+
+    def build(chosen, torch_device):
+        seen["layout"], seen["device"] = chosen.descriptor, torch_device.type
+        return mesh
+
+    class Recording:
+        def __init__(self, cfg, shape, opt, tcfg, *, admission, device, mesh=None):
+            seen["mesh"] = mesh
+
+        def train(self, n):
+            return {"history": [], "stragglers": []}
+
+    monkeypatch.setattr(launch, "_build_mesh", build)
+    monkeypatch.setattr(launch, "Trainer", Recording)
+    launch.main(LAUNCH + ["--auto-mesh", "2"])
+    out = capsys.readouterr().out
+    assert "needs 2 devices, host has 1 — plan reported, training unsharded" in out
+    assert "mesh" in seen and seen["mesh"] is None and "layout" not in seen
+    monkeypatch.setattr(launch, "_world", lambda: 2)
+    launch.main(LAUNCH + ["--auto-mesh", "2"])
+    out = capsys.readouterr().out
+    assert "phi_ms" in out and f"auto-mesh: built {seen['layout']}" in out
+    assert seen["mesh"] is mesh and seen["device"] == "cpu" and not draws
 
 
 def test_auto_mesh_admission_info_carries_the_layout(pinned, monkeypatch, capsys):

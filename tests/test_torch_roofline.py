@@ -51,8 +51,9 @@ def test_model_flops_for_cell_matches_the_reference(arch):
 def test_roofline_report_from_a_traced_cost():
     from repro_torch.models import transformer as T
 
+    # the reference's fields in its order, then the port's "sp"
     assert [f.name for f in dataclasses.fields(RooflineReport)] == \
-        [f.name for f in dataclasses.fields(RefReport)]
+        [f.name for f in dataclasses.fields(RefReport)] + ["sp"]
     cfg = get_config("qwen3-4b", reduced=True)
     spec = T.input_specs(cfg, "prefill", batch_size=2, seq_len=32)
     cost = trace_cost(T.prefill, T.param_specs(cfg), spec["batch"], cfg, max_len=32)
@@ -68,6 +69,7 @@ def test_roofline_report_from_a_traced_cost():
     assert rep.per_device_hbm_gb == 3.0 and rep.fits_hbm
     assert rep.class_breakdown == cost.by_class() and len(rep.top_ops) == 3
     assert rep.to_dict()["arch"] == cfg.name and "bytes by class" in rep.summary()
+    assert rep.sp is False
     small = roofline_from_cost(cost, arch="a", shape="p", mesh_desc="1", n_devices=2,
                                model_flops_total=mf, hw=dev.hw_table(), plan_bytes=1e12)
     assert not small.fits_hbm and small.model_flops == mf / 2

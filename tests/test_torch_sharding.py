@@ -146,6 +146,7 @@ def test_validate_mesh_spec_names_the_deficit(shape, available):
         assert getattr(mine.value, f) == getattr(ref.value, f), f
     assert f"({mine.value.deficit} short)" in str(mine.value)
     assert str(mine.value).split(" — ")[0] == str(ref.value).split(" — ")[0]
+    assert "fake_world" in str(mine.value) and "XLA_FLAGS" not in str(mine.value)
     n = mesh.validate_mesh_spec(shape, axes, available=mine.value.needed)
     assert n == ref_mesh.validate_mesh_spec(shape, axes) == mine.value.needed
 
@@ -171,3 +172,248 @@ def test_registry_cells_and_shapes():
                         ref_registry.cell_supported(ref_cfg, _ref_shape(s), dims)
     for dims in MESHES:
         assert base.mesh_split(dims) == ref_base.mesh_split(dims)
+
+
+# ---------------------------------------------------------------------------
+# Execution: DeviceMesh and DTensor placements (queue 1 item 7c)
+# ---------------------------------------------------------------------------
+
+_REF_INDICES = """
+import json
+import jax
+from jax.sharding import NamedSharding
+from repro.configs import base, registry
+from repro.distributed import sharding as sh
+from repro.launch.mesh import make_mesh
+from repro.models import transformer as T
+
+def slices(spec, shape, mesh):
+    idx = NamedSharding(mesh, spec).devices_indices_map(tuple(shape))
+    out = []
+    for d in mesh.devices.flat:
+        out.append([[s.start or 0, d_ if s.stop is None else s.stop]
+                    for s, d_ in zip(idx[d], shape)])
+    return out
+
+def walk(specs, shapes, mesh, path=()):
+    if isinstance(shapes, dict):
+        return {k: walk(specs[k], shapes[k], mesh, path + (k,)) for k in shapes}
+    return slices(specs, shapes, mesh)
+
+res = {}
+for dims in ((2, 4), (2, 2, 2)):
+    axes = ("pod", "data", "model")[-len(dims):]
+    mesh = make_mesh(dims, axes)
+    for arch in registry.ARCH_IDS:
+        cfg = registry.get_config(arch)
+        tree = T._shape_tree(cfg)
+        st = sh.state_pspecs(cfg, mesh)
+        dec = base.SHAPES["decode_32k"]
+        cache = T.cache_shapes(cfg, dec.global_batch, dec.seq_len)
+        res[f"{arch}|{dims}"] = {
+            "params": walk(st["params"], tree, mesh),
+            "m": walk(st["opt"]["m"], tree, mesh),
+            "cache": walk(sh.cache_pspecs(cfg, dec, mesh), cache, mesh),
+            "tokens": slices(sh.batch_pspecs(cfg, base.SHAPES["train_4k"], mesh)["tokens"],
+                             (256, 4096), mesh),
+        }
+print(json.dumps(res))
+"""
+
+
+def _port_slices(named, shape, dims):
+    """Each rank's ``[[start, stop], ...]`` of a ``NamedSharding`` on a
+    ``dims`` mesh (rank r at coordinate ``unravel(r)``, the reference's
+    device r)."""
+    import numpy as np
+    from torch.distributed.tensor._utils import _compute_local_shape_and_global_offset
+
+    out = []
+    for r in range(int(np.prod(dims))):
+        coord = [int(c) for c in np.unravel_index(r, dims)]
+        local, offset = _compute_local_shape_and_global_offset(
+            tuple(shape), tuple(dims), coord, list(named.placements))
+        out.append([[int(o), int(o) + int(n)] for o, n in zip(offset, local)])
+    return out
+
+
+def _walk(named, shapes, dims):
+    if isinstance(shapes, dict):
+        return {k: _walk(named[k], shapes[k], dims) for k in shapes}
+    return _port_slices(named, shapes, dims)
+
+
+def test_to_named_places_every_leaf_as_the_reference(tmp_path):
+    """``to_named`` of the state (parameters and ZeRO slots), the decode
+    cache and the training batch of all 10 architectures at full size on
+    (2, 4) and (2, 2, 2): every rank holds the same slice of every leaf
+    as the reference's ``NamedSharding`` gives the same device (the
+    reference in a subprocess with 8 forced host devices)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.models import transformer as T
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=os.path.join(root, "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _REF_INDICES], capture_output=True,
+                          text=True, env=env, timeout=300, cwd=root)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    n = 0
+    for dims in ((2, 4), (2, 2, 2)):
+        axes = ("pod", "data", "model")[-len(dims):]
+        with mesh.fake_world(8):
+            m = mesh.make_mesh(dims, axes, device="cpu")
+            assert tuple(m.mesh_dim_names) == axes and tuple(m.mesh.shape) == dims
+            for arch in registry.ARCH_IDS:
+                cfg = registry.get_config(arch)
+                want = ref[f"{arch}|{dims}"]
+                tree = T._shape_tree(cfg)
+                st = sh.to_named(m, sh.state_pspecs(cfg, m))
+                dec = base.SHAPES["decode_32k"]
+                cache = T.cache_shapes(cfg, dec.global_batch, dec.seq_len)
+                got = {
+                    "params": _walk(st["params"], tree, dims),
+                    "m": _walk(st["opt"]["m"], tree, dims),
+                    "cache": _walk(sh.to_named(m, sh.cache_pspecs(cfg, dec, m)), cache, dims),
+                    "tokens": _port_slices(sh.to_named(m, sh.batch_pspecs(
+                        cfg, base.SHAPES["train_4k"], m))["tokens"], (256, 4096), dims),
+                }
+                assert got == want, (arch, dims)
+                n += 1
+    assert n == 2 * len(registry.ARCH_IDS)
+
+
+def test_make_mesh_needs_a_group_and_enough_ranks():
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="initialised process group"):
+        mesh.make_mesh((1, 1), ("data", "model"))
+    with mesh.fake_world(4):
+        with pytest.raises(mesh.MeshSpecError) as e:
+            mesh.make_mesh((2, 4), ("data", "model"), device="cpu")
+        assert (e.value.needed, e.value.available, e.value.deficit) == (8, 4, 4)
+        pm = mesh.make_mesh((2, 2), ("data", "model"), device="cpu")
+        assert mesh.dp_axes(pm) == ("data",) and pm.device_type == "cpu"
+    with mesh.fake_world(512):
+        for multi, dims in ((False, (16, 16)), (True, (2, 16, 16))):
+            pm = mesh.make_production_mesh(multi_pod=multi, device="cpu")
+            assert tuple(pm.mesh.shape) == dims
+            assert mesh.dp_axes(pm) == ref_mesh.dp_axes(
+                ref_coll.abstract_mesh(dims)) == (("pod", "data") if multi else ("data",))
+    assert not dist.is_initialized()
+
+
+def test_placements_of_spec_entries():
+    from torch.distributed.tensor import Replicate, Shard
+
+    with mesh.fake_world(8):
+        m = mesh.make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+        assert sh.placements(m, (("pod", "data"), None, "model")) == \
+            (Shard(0), Shard(0), Shard(2))
+        assert sh.placements(m, ()) == (Replicate(),) * 3
+        assert sh.placements(m, (None, "data")) == (Replicate(), Shard(1), Replicate())
+        with pytest.raises(ValueError, match="axis order"):
+            sh.placements(m, (("data", "pod"),))
+        with pytest.raises(ValueError, match="shards two dims"):
+            sh.placements(m, ("data", "data"))
+
+
+_HINT_CASES = [((8, 16, 32), ("dp", "model", None)), ((3, 16, 32), ("dp", "model", None)),
+               ((8, 6, 32), ("dp", "model", None)), ((8, 16, 32), ("dp", None, None)),
+               ((4, 8, 24, 16), ("dp", "model", None, None)),
+               ((4, 6, 24, 16), ("dp", "model", None, None)),
+               ((2, 4, 16), (None, "model", "data")), ((8, 16), ("pod", "model"))]
+
+_REF_HINTS = """
+import json, sys
+import jax, jax.numpy as jnp
+from repro.launch.mesh import make_mesh
+from repro.models import layers as L
+cases = json.loads(sys.argv[1])
+jax.lax.with_sharding_constraint = lambda x, s: s.spec     # read the spec it asks
+out = {}
+for dims in ((2, 4), (2, 2, 2)):
+    L.set_hint_mesh(make_mesh(dims, ("pod", "data", "model")[-len(dims):]))
+    out[str(dims)] = [[list(e) if isinstance(e, tuple) else e
+                       for e in L._maybe_constrain(jnp.zeros(shape), *spec)]
+                      for shape, spec in cases]
+print(json.dumps(out))
+"""
+
+
+def test_maybe_constrain_asks_the_reference_s_layout(monkeypatch):
+    """``layers._maybe_constrain`` on a DTensor gives the placements of the
+    spec the reference's ``_maybe_constrain`` hands
+    ``with_sharding_constraint`` (its "dp" marker, its per-dim
+    divisibility fallback), on (2, 4) and (2, 2, 2); on a plain tensor and
+    with no hint mesh it is the identity."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.models import layers as L
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=os.path.join(root, "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _REF_HINTS, json.dumps(_HINT_CASES)],
+                          capture_output=True, text=True, env=env, timeout=300, cwd=root)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    plain = torch.zeros(4, 4)
+    assert L._maybe_constrain(plain, "dp", None) is plain
+    for dims in ((2, 4), (2, 2, 2)):
+        with mesh.fake_world(8):
+            m = mesh.make_mesh(dims, ("pod", "data", "model")[-len(dims):], device="cpu")
+            with L.hint_mesh(m):
+                assert L._maybe_constrain(plain, "dp", None) is plain
+                for (shape, spec), want in zip(_HINT_CASES, ref[str(dims)]):
+                    x = distribute_tensor(torch.empty(shape, device="meta"), m,
+                                          [Replicate()] * m.ndim)
+                    want = tuple(tuple(e) if isinstance(e, list) else e for e in want)
+                    want = want + (None,) * (len(shape) - len(want))
+                    got = L._maybe_constrain(x, *spec).placements
+                    assert got == sh.placements(m, want), (dims, shape, spec)
+            assert L._HINT_MESH is None
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-moe-30b-a3b"])
+def test_distributed_shards_own_only_their_storage(arch):
+    """Every local shard of a placed train state owns exactly its own
+    bytes: a slice of dim 0 alone (the embedding's vocab rows, the
+    experts) is a copy, not a view that keeps the whole leaf alive on
+    every rank.  Rank 0 of a fake (2, 4) group, real CPU tensors."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state
+
+    cfg = registry.get_config(arch, reduced=True)
+    with mesh.fake_world(8):
+        m = mesh.make_mesh((2, 4), ("data", "model"), device="cpu")
+        model = T.init_params(cfg, 0, device="cpu", dtype=torch.float32)
+        state = {"params": model, "opt": init_opt_state(
+            dict(model.named_parameters()), OptimizerConfig(kind="adamw"))}
+        state = sh.distribute_tree(state, sh.train_state_shardings(cfg, m))
+        leaves = dict(state["params"].named_parameters())
+        leaves.update({f"m.{n}": t for n, t in state["opt"]["m"].items()})
+        leaves.update({f"v.{n}": t for n, t in state["opt"]["v"].items()})
+        dim0_only = 0
+        for name, t in leaves.items():
+            local = t.to_local()
+            assert local.untyped_storage().nbytes() == \
+                local.numel() * local.element_size(), name
+            shards = {p.dim for p in t.placements if isinstance(p, Shard)}
+            dim0_only += shards == {0}
+        assert dim0_only > 0            # the case a view would get wrong
