@@ -11,9 +11,10 @@ Phases (any failure raises and the script exits non-zero):
    one ``nvcc`` per kernel, all started together (→ ``build/repro_torch/``);
    print ``-Xptxas -v`` (registers, spills) for each kernel instantiation
    and the count of tensor-core instructions (HGMMA, HMMA) in the SASS
-   (``cuobjdump -sass``) of the paged decode, flash attention and SSD
-   libraries, none of which may be 0; hold the shared memory the tiling
-   models report against the sources' own formulas, all four kernels;
+   (``cuobjdump -sass``) of all four libraries, none of which may be 0
+   (``conv_mm``: HGMMA, its bf16 ``wgmma`` kernel); hold the shared memory
+   the tiling models report against the sources' own formulas, all four
+   kernels, ``conv_mm`` at every tile its two tile rules give;
 3. tune — the kernel autotuner on the card: a ``KernelTuner`` for this
    card (``from_torch_device``, ``measure=True``) on a fresh cache
    installed as the process default; ``warm_autotune`` for full-width
@@ -27,7 +28,8 @@ Phases (any failure raises and the script exits non-zero):
    card: paged decode at qwen3-4b decode shapes (bf16 at head dims 64 and
    128, rep 1, 4, 5 and 8, every token tile that fits and 1, 2, 4 and 8
    splits, each at the cache_len edges; f32), the MM convolution on
-   every convolution shape of full-width ResNet-50 and on edge cases,
+   every convolution shape of full-width ResNet-50 and on edge cases, f32
+   and bf16, and at the kernel bench's bf16 shape,
    flash attention at the qwen3-4b prefill shape and edge cases (fully
    masked rows against mean(V), also over a ragged last tile), the SSD
    intra-chunk pass at the mamba2-780m shape for every chunk the tuner may
@@ -196,7 +198,11 @@ Phases (any failure raises and the script exits non-zero):
    on two ``gloo`` CPU ranks (beside (a)-(c)) and
    ``check_thresholds.evaluate`` over the benches phase's results and
    the calibration's: every condition printed, a ``FAIL`` fails the run;
-13. a ``{"kernels": [...]}`` JSON line (the flash entry with the train
+13. a ``{"kernels": [...]}`` JSON line (``conv_mm`` with the ResNet-50
+   forward's f32 sums as its unprefixed numbers and the bf16 ones as
+   ``bf16_forward_*``, and the bench shape's bf16 ``bf16_bench_*``; the
+   flash entry with the f32 prefill's ``f32_ms``, ``f32_library_ms`` and
+   ``f32_bound_ms`` and the train
    phase's ``train_*`` numbers, paged decode with the layers phase's
    ``moe_*``, the admit phase's ``admit_*``, the campaign phase's
    ``campaign_*`` and the benches phase's ``serve_bench_*`` numbers, SSD
@@ -301,11 +307,16 @@ def check_smem_formulas(flash_lib, ssd_lib, conv_lib, decode_lib) -> None:
                         != flash_tiling.smem_bytes(Dh, bk, dtype)):
                     raise AssertionError(f"flash smem formula differs at Dh={Dh} "
                                          f"block_k={bk} {dtype}")
-        for bm in (64, 128):
-            for bn in (64, 128):
-                if conv_lib.conv_mm_smem_bytes(bm, bn, flag) != conv_tiling.smem_bytes(bm, bn, dtype):
-                    raise AssertionError(f"conv_mm smem formula differs at tile "
-                                         f"{bm}x{bn} {dtype}")
+        # every tile the dtype's rule gives, over the GEMMs of ResNet-50 at
+        # bs 1-256 and beyond
+        tiles = {conv_tiling.tile_for(M, O, dtype)
+                 for M in (1, 64, 2048, 8192, 16384, 16896, 131072, 2**22)
+                 for O in (1, 8, 64, 65, 128, 256, 2048)}
+        for bm, bn in sorted(tiles):
+            smem = conv_lib.conv_mm_smem_bytes(bm, bn, flag)
+            if smem != conv_tiling.smem_bytes(bm, bn, dtype) or smem > 232448:
+                raise AssertionError(f"conv_mm smem formula differs at tile "
+                                     f"{bm}x{bn} {dtype} (or exceeds 232448 bytes)")
     for l in (16, 32, 64, 96, 100, 128, 256):
         for N, P in ((128, 64), (32, 32), (16, 8), (100, 50)):
             if ssd_lib.ssd_chunk_smem_bytes(l, N, P) != ssm_tiling.smem_bytes(l, N, P):
@@ -2483,8 +2494,27 @@ def flash_kernel_phase(flush, tuned: dict) -> dict:
           f"scaled_dot_product_attention {library_ms:.4f} ms (max_abs_err vs plain "
           f"{lib_err:.3e}), bound {bound_ms:.4f} ms ({bound_by}) -> "
           f"{bound_ms / ms:.1%} of bound")
+    # f32 at the same shape: the scalar f32 kernel at its tuned config and
+    # SDPA in f32 (matmul TF32 is off for the whole script), on the same
+    # values upcast; the f32 kernel's error is gated by the f32 check above
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    kr32, vr32 = (t.repeat_interleave(H // Hkv, dim=1) for t in (k32, v32))
+    f32_ms = time_ms(lambda: flash_attention_cuda(q32, k32, v32, **tuned["flash_prefill_f32"]),
+                     flush, 3, 1)
+    f32_library_ms = time_ms(
+        lambda: F.scaled_dot_product_attention(q32, kr32, vr32, is_causal=True), flush, 3, 1)
+    t_ops32, t_bytes32 = flops / F32_FLOPS, 2 * nbytes / HBM_BYTES_PER_S
+    f32_bound_ms = max(t_ops32, t_bytes32) * 1e3
+    print(f"timing flash_attention qwen3-4b prefill B={B} H={H} Hkv={Hkv} S={S} Dh={Dh} f32 "
+          f"causal at {tuned['flash_prefill_f32']}: kernel {f32_ms:.4f} ms, "
+          f"scaled_dot_product_attention f32 {f32_library_ms:.4f} ms "
+          f"({f32_ms / f32_library_ms:.2f}x), bound {f32_bound_ms:.4f} ms "
+          f"({'operations' if t_ops32 >= t_bytes32 else 'bytes'}, CUDA-core f32) -> "
+          f"{f32_bound_ms / f32_ms:.1%} of bound")
+    del q32, k32, v32, kr32, vr32
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "f32_ms": f32_ms, "f32_library_ms": f32_library_ms, "f32_bound_ms": f32_bound_ms}
 
 
 def ssd_kernel_phase(flush, tuned: dict) -> dict:
@@ -2628,14 +2658,16 @@ def conv_shape(s, node) -> tuple:
     return (*s, node.k, node.out, node.stride, node.pad)
 
 
-def conv_bound(N, H, W, C, K, O, stride, pad, itemsize=4) -> tuple[float, str, float]:
+def conv_bound(N, H, W, C, K, O, stride, pad, dtype="float32") -> tuple[float, str, float]:
     """(bound ms, what bounds it, ms at the TF32 tensor-core peak): x and
-    w read once and y written once, against 2·N·OH·OW·K·K·C·O flops at the
-    f32 peak."""
+    w read once and y written once, in ``dtype``, against
+    2·N·OH·OW·K·K·C·O flops at that type's peak: f32 on the CUDA cores
+    (the f32 kernel's), bf16 on the tensor cores (the bf16 kernel's)."""
     OH, OW = 1 + (H + 2 * pad - K) // stride, 1 + (W + 2 * pad - K) // stride
+    itemsize, peak = (2, BF16_FLOPS) if dtype == "bfloat16" else (4, F32_FLOPS)
     nbytes = itemsize * (N * H * W * C + K * K * C * O + N * OH * OW * O)
     flops = 2 * N * OH * OW * K * K * C * O
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             max(t_bytes, flops / TF32_FLOPS) * 1e3)
 
@@ -2700,12 +2732,20 @@ def check_conv_pairs(pairs, label: str, seed: int) -> float:
     return err
 
 
+# kernel_bench's conv_mm shape (the reference's): (N, H, W, C, K, O, stride,
+# padding), bf16
+CONV_BENCH = (8, 32, 32, 128, 3, 128, 1, 1)
+
+
 def conv_kernel_phase(flush) -> dict:
     """conv_mm against its plain version on every distinct convolution
     shape of full-width ResNet-50 (bs 32) and on the edge cases, f32 and
-    bf16; then times at bs 128, each shape first held against the plain
-    version in f32: three named shapes, and the sum over the 53
-    convolutions of one forward pass."""
+    bf16, and at the kernel bench's bf16 shape; then times at bs 128, each
+    shape first held against the plain version, f32 and bf16: three named
+    shapes, and the sum over the 53 convolutions of one forward pass; and
+    the bench shape in bf16.  Beside the kernel: its plain version,
+    ``F.conv2d`` on channels-last views of the same tensors (cuDNN, no
+    TF32; the yardstick, never called by the port) and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -2736,44 +2776,65 @@ def conv_kernel_phase(flush) -> dict:
         # channels-last path) and its weight laid out once outside the clock
         xc = x.permute(0, 3, 1, 2)
         wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        lib_err = float((F.conv2d(xc, wc, stride=s, padding=p).permute(0, 2, 3, 1)
-                         - conv_ref(x, w, stride=s, padding=p)).abs().max())
+        lib_err = float((F.conv2d(xc, wc, stride=s, padding=p).permute(0, 2, 3, 1).float()
+                         - conv_ref(x, w, stride=s, padding=p).float()).abs().max())
         return (time_ms(lambda: conv_mm_cuda(x, w, stride=s, padding=p), flush, reps, warmup),
                 time_ms(lambda: conv_ref(x, w, stride=s, padding=p), flush, reps, warmup),
                 time_ms(lambda: F.conv2d(xc, wc, stride=s, padding=p), flush, reps, warmup),
                 lib_err)
 
+    types = (("float32", torch.float32, "f32"), ("bfloat16", torch.bfloat16, "bf16"))
     for label, (H, W, C, K, O, s, p) in (
             ("largest 3x3", (32, 32, 64, 3, 64, 1, 1)),
             ("largest 1x1", (4, 4, 512, 1, 2048, 1, 0)),
             ("stem", (32, 32, 3, 3, 64, 1, 1))):
-        x, w = conv_inputs(gen, 128, H, W, C, K, O, torch.float32)
-        ms, plain, lib, lib_err = three(x, w, s, p)
-        bound_ms, by, tf32_ms = conv_bound(128, H, W, C, K, O, s, p)
-        print(f"timing conv_mm {label} N=128 {H}x{W} C={C} K={K} O={O} s={s} p={p} f32: "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, F.conv2d (cuDNN, no TF32) "
-              f"{lib:.4f} ms (max_abs_err vs plain {lib_err:.3e}), bound {bound_ms:.4f} ms "
-              f"({by}) -> {bound_ms / ms:.1%} of bound; at the TF32 tensor-core peak "
-              f"{tf32_ms:.4f} ms")
+        for name, dtype, short in types:
+            x, w = conv_inputs(gen, 128, H, W, C, K, O, dtype)
+            ms, plain, lib, lib_err = three(x, w, s, p)
+            bound_ms, by, tf32_ms = conv_bound(128, H, W, C, K, O, s, p, name)
+            ceiling = (f"; at the TF32 tensor-core peak {tf32_ms:.4f} ms"
+                       if name == "float32" else "")
+            print(f"timing conv_mm {label} N=128 {H}x{W} C={C} K={K} O={O} s={s} p={p} "
+                  f"{short}: kernel {ms:.4f} ms, plain {plain:.4f} ms, F.conv2d (cuDNN, "
+                  f"no TF32) {lib:.4f} ms (max_abs_err vs plain {lib_err:.3e}), bound "
+                  f"{bound_ms:.4f} ms ({by}) -> {bound_ms / ms:.1%} of bound{ceiling}")
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    by_ops = by_bytes = 0.0
-    for (H, W, C, K, O, s, p), n in counts.items():
-        x, w = conv_inputs(gen, 128, H, W, C, K, O, torch.float32)
-        conv_check(x, w, s, p)
-        ms, plain, lib, _ = three(x, w, s, p, reps=10, warmup=2)
-        bound_ms, by, _ = conv_bound(128, H, W, C, K, O, s, p)
-        for key, v in zip(total, (ms, plain, lib, bound_ms)):
-            total[key] += n * v
-        by_ops += n * bound_ms if by == "operations" else 0.0
-        by_bytes += n * bound_ms if by == "bytes" else 0.0
-    total["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
-    print(f"timing conv_mm all {len(convs)} convolutions of one ResNet-50 forward, "
-          f"N=128 32x32 f32: kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
-          f"F.conv2d {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms "
-          f"({by_ops:.3f} ms of it bound by operations, {by_bytes:.3f} ms by bytes) "
-          f"-> {total['bound_ms'] / total['ms']:.1%} of bound")
-    return total
+    out: dict = {}
+    for name, dtype, short in types:
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        by_ops = by_bytes = 0.0
+        for (H, W, C, K, O, s, p), n in counts.items():
+            x, w = conv_inputs(gen, 128, H, W, C, K, O, dtype)
+            conv_check(x, w, s, p)
+            ms, plain, lib, _ = three(x, w, s, p, reps=10, warmup=2)
+            bound_ms, by, _ = conv_bound(128, H, W, C, K, O, s, p, name)
+            for key, v in zip(total, (ms, plain, lib, bound_ms)):
+                total[key] += n * v
+            by_ops += n * bound_ms if by == "operations" else 0.0
+            by_bytes += n * bound_ms if by == "bytes" else 0.0
+        total["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
+        print(f"timing conv_mm all {len(convs)} convolutions of one ResNet-50 forward, "
+              f"N=128 32x32 {short}: kernel {total['ms']:.3f} ms, plain "
+              f"{total['plain_ms']:.3f} ms, F.conv2d {total['library_ms']:.3f} ms, bound "
+              f"{total['bound_ms']:.3f} ms ({by_ops:.3f} ms of it bound by operations, "
+              f"{by_bytes:.3f} ms by bytes) -> {total['bound_ms'] / total['ms']:.1%} of bound")
+        # f32's numbers are the line's unprefixed keys (the main path's type)
+        out.update(total if name == "float32"
+                   else {f"bf16_forward_{k}": v for k, v in total.items()})
+
+    N, H, W, C, K, O, s, p = CONV_BENCH
+    x, w = conv_inputs(gen, N, H, W, C, K, O, torch.bfloat16)
+    err = conv_check(x, w, s, p)
+    ms, plain, lib, lib_err = three(x, w, s, p)
+    bound_ms, by, _ = conv_bound(N, H, W, C, K, O, s, p, "bfloat16")
+    print(f"timing conv_mm bench shape N={N} {H}x{W} C={C} K={K} O={O} s={s} p={p} bf16: "
+          f"max_abs_err vs plain {err:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"F.conv2d (cuDNN) {lib:.4f} ms (max_abs_err vs plain {lib_err:.3e}), bound "
+          f"{bound_ms:.4f} ms ({by}) -> {bound_ms / ms:.1%} of bound")
+    out.update({"bf16_bench_max_abs_err": err, "bf16_bench_ms": ms,
+                "bf16_bench_plain_ms": plain, "bf16_bench_library_ms": lib,
+                "bf16_bench_bound_ms": bound_ms, "bf16_bench_bound_by": by})
+    return out
 
 
 def cnn_step_check() -> None:
@@ -4096,10 +4157,9 @@ def main() -> int:
         log = Path(lib._name).with_suffix(".log").read_text()
         print(f"build {name} ptxas -v by instantiation: " + "; ".join(
             f"{k} {regs} registers, {spill} bytes spilled" for k, regs, spill in ptxas_kernels(log)))
-    # the tensor-core kernels: bf16 paged decode and flash, ssd_chunk (3xTF32)
+    # the tensor-core kernels: bf16 paged decode, flash and conv_mm, ssd_chunk
+    # (3xTF32); conv_mm's bf16 kernel is a wgmma kernel (HGMMA)
     for name, lib in zip(wrappers, libs):
-        if name == "conv_mm":
-            continue
         mma = sass_mma_count(lib._name)
         if mma is None:
             print(f"build {name} SASS tensor-core instructions: not available (no cuobjdump)")
@@ -4108,6 +4168,8 @@ def main() -> int:
               f"HGMMA {mma['HGMMA']}, HMMA {mma['HMMA']}")
         if not mma["HGMMA"] + mma["HMMA"] > 0:
             raise AssertionError(f"the {name} library has no tensor-core instruction")
+        if name == "conv_mm" and not mma["HGMMA"] > 0:
+            raise AssertionError("the conv_mm library has no HGMMA instruction")
     check_smem_formulas(libs[2], libs[3], libs[1], libs[0])
 
     t0 = time.perf_counter()

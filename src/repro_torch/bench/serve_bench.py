@@ -9,12 +9,15 @@ engine's p50/p99 TTFT and per-token latency.  The lockstep baseline is
 grab up to ``n_slots`` arrived requests, decode until the *longest*
 finishes, return the batch — short requests hold their slots, which is
 exactly the idle time continuous batching reclaims.  Then the chaos row
-(the same trace under a seeded fault plan) and the chunked-prefill row.
+(the same trace under a seeded fault plan, replayed on engine steps) and
+the chunked-prefill row.
 
 Methodology, as the reference's:
 
 * open-loop — arrivals follow the trace's wall-clock offsets whether or
-  not the server keeps up, so queueing delay lands in TTFT;
+  not the server keeps up, so queueing delay lands in TTFT (the chaos
+  row's follow engine steps, ``run_stepped``, where the reference's
+  follow the clock);
 * each engine runs the trace twice on one instance and the second pass is
   measured (the first warms the tuner and the allocator);
 * lockstep TTFT is batch-completion-based; the gate compares sustained
@@ -65,8 +68,8 @@ from repro_torch.serve import (
     resolve_block_size,
 )
 
-__all__ = ["make_trace", "run_lockstep", "run_continuous", "run", "run_chaos",
-           "run_chunked"]
+__all__ = ["make_trace", "run_lockstep", "run_continuous", "run_stepped", "run",
+           "run_chaos", "run_chunked"]
 
 MAX_LEN = 64
 N_SLOTS = 4
@@ -141,6 +144,29 @@ def run_continuous(ce: ContinuousEngine, trace, *,
         if ce.idle and i < len(trace):
             time.sleep(max(0.0, trace[i][0] - now))
             continue
+        ce.step()
+    return {"wall_s": time.perf_counter() - start}
+
+
+def run_stepped(ce: ContinuousEngine, trace, *,
+                deadline_ms: float | None = None) -> dict:
+    """Replay ``trace`` on the engine's steps instead of the host clock: a
+    request that arrives at ``t`` s is submitted before step
+    ``⌊t / CHAOS_STEP_S⌋ + 1`` of the pass, however long the steps take
+    (the engine steps while idle until the next one is due).  Which step
+    admits each request, and so which admissions meet a fault plan's
+    planned steps, is then the same on every host.  Latencies count from
+    submission."""
+    start = time.perf_counter()
+    first = ce._step
+    due = [int(arrival // CHAOS_STEP_S) for arrival, _, _ in trace]
+    i = 0
+    while i < len(trace) or not ce.idle:
+        while i < len(trace) and due[i] <= ce._step - first:
+            _, prompt, max_new = trace[i]
+            ce.submit(Request(prompt=prompt, max_new_tokens=max_new,
+                              deadline_ms=deadline_ms))
+            i += 1
         ce.step()
     return {"wall_s": time.perf_counter() - start}
 
@@ -238,6 +264,10 @@ CHAOS_FAULT_STEPS = 80         # fault window (engine drains past it)
 CHAOS_P_ALLOC = 0.25
 CHAOS_P_BACKEND = 0.25
 CHAOS_DEADLINE_MS = 60_000.0   # wired per request; never binds at bench scale
+# the chaos replay's nominal engine step: the trace's 30 req/s then arrive
+# 0.75 a step, faster than 4 slots serve them (the cell stays loaded),
+# within the fault window
+CHAOS_STEP_S = 0.025
 
 
 class _StaticForest:
@@ -310,19 +340,23 @@ def run_chaos(print_fn=print, seed: int = 0, *, device="cuda", cfg=None,
               params=None) -> dict:
     """Serve the Poisson trace under a seeded fault plan and report the
     robustness row: zero lost requests, all terminal, goodput retention
-    against the identical fault-free cell."""
+    against the identical fault-free cell.  Both cells replay the trace on
+    engine steps (``run_stepped``), not on the host clock as ``run`` does:
+    a backend fault fires only where an admission is priced on one of the
+    plan's steps, and a clock replay under host load moves the admissions
+    off them (the reference replays on the clock)."""
     dev = resolve_device(device)
     cfg, params = _model(cfg, params, dev)
     trace = make_trace(seed)
     steps = {"total": 0}
 
     def measure(ce, plan):
-        run_continuous(ce, trace, deadline_ms=CHAOS_DEADLINE_MS)  # warm
+        run_stepped(ce, trace, deadline_ms=CHAOS_DEADLINE_MS)  # warm
         steps["total"] += ce.decode_steps
         _reset(ce)
         _arm(ce, plan)
-        wall = run_continuous(ce, trace,
-                              deadline_ms=CHAOS_DEADLINE_MS)["wall_s"]
+        wall = run_stepped(ce, trace,
+                           deadline_ms=CHAOS_DEADLINE_MS)["wall_s"]
         steps["total"] += ce.decode_steps
         tpots = [1e3 * (r.t_finished - r.t_arrival) / max(r.n_generated, 1)
                  for r in ce.finished]

@@ -4,9 +4,11 @@ counter (port of ``repro/kernels/conv_mm/kernel.py``).
 The kernel itself is ``csrc/conv_mm.cu``; its header note says what it
 replaces, what bounds it and how it is laid out.  ``conv_mm_cuda`` builds
 the library at first use (:mod:`repro_torch.kernels.build`), checks its
-inputs, picks the f32 kernel's tile (``tiling.conv_tile``) and its copy
-widths (16-byte copies of x where C % 4 == 0, of w where O % 4 == 0),
-allocates the output and launches on PyTorch's current stream.
+inputs, picks the tile (``tiling.tile_for``: ``conv_tile`` for f32,
+``conv_tile_bf16`` for the bf16 ``wgmma`` kernel) and the copy widths
+(16-byte copies of x where C is a multiple of 4 f32 or 8 bf16 values, of
+w where O is), allocates the output and launches on PyTorch's current
+stream.
 It takes CUDA tensors only: the plain version for CPU tensors is
 ``ref.conv_ref``, chosen by ``ops.conv_mm``.
 """
@@ -21,7 +23,7 @@ import torch
 from repro_torch.kernels.build import build_library
 
 from .ref import out_hw
-from .tiling import conv_tile
+from .tiling import tile_for
 
 __all__ = ["ConvMMKernel", "conv_mm_cuda", "SOURCES"]
 
@@ -82,9 +84,10 @@ class ConvMMKernel:
         if max(x.numel(), w.numel(), N * OH * OW * O) >= 2**31:
             raise ValueError("conv_mm_cuda takes tensors of fewer than 2^31 "
                              "elements")
-        bm, bn = conv_tile(N * OH * OW, O)
-        vec_a = C % 4 == 0 and x.data_ptr() % 16 == 0
-        vec_b = O % 4 == 0 and w.data_ptr() % 16 == 0
+        bm, bn = tile_for(N * OH * OW, O, x.dtype)
+        per16 = 16 // x.element_size()           # values in one 16-byte copy
+        vec_a = C % per16 == 0 and x.data_ptr() % 16 == 0
+        vec_b = O % per16 == 0 and w.data_ptr() % 16 == 0
         lib = self.load()
         y = torch.empty((N, OH, OW, O), dtype=x.dtype, device=x.device)
         with torch.cuda.device(x.device):

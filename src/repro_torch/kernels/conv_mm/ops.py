@@ -6,8 +6,8 @@ the Hopper kernel (``kernel.conv_mm_cuda``), which launches or raises; a
 CPU or meta tensor goes to the plain version (``ref.conv_ref``).  There is
 no other switch: the reference's ``interpret=`` has no counterpart, and
 ``block_o`` is accepted for its signature but sets no tile: the CUDA
-kernel's tile follows a fixed rule on the GEMM's shape
-(``tiling.conv_tile``), so unlike the reference this wrapper does not
+kernel's tile follows a fixed rule on the GEMM's shape and the input
+type (``tiling.tile_for``), so unlike the reference this wrapper does not
 consult the autotuner (there is nothing for a tuned ``block_o`` to set;
 ``tiling.py`` keeps the cost model, registered without a runner).
 

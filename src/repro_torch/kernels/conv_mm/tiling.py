@@ -5,7 +5,8 @@
 reference's (grid (N, O/block_o), VMEM holding the padded image, a weight
 tile and the accumulator), so a TPU spec ranks them identically.  The
 model is registered **without a runner**: the CUDA kernel's tile is not
-``block_o`` but a fixed rule on the GEMM's shape (``conv_tile``), so
+``block_o`` but a fixed rule on the GEMM's shape (``conv_tile`` for f32,
+``conv_tile_bf16`` for bf16), so
 ``block_o`` sets nothing on the card and timing its candidates would time
 identical launches (and a runner inside the profiling grid would time
 configs inside Φ).  Under a CUDA spec every config is legal
@@ -24,12 +25,12 @@ from repro_torch.kernels.autotune import (
 )
 
 __all__ = ["shape_key", "candidates", "default", "cost", "conv_tile",
-           "smem_bytes", "NUM_SMS"]
+           "conv_tile_bf16", "tile_for", "smem_bytes", "NUM_SMS"]
 
-# csrc/conv_mm.cu: the f32 kernel's K chunk and ring depth, and the bf16
-# kernel's static As[16][64 + 4] and Bs[16][64] f32 arrays
+# csrc/conv_mm.cu: the f32 kernel's K chunk and ring depth (f32 values), and
+# the bf16 kernel's (bf16 values, stages 1024-byte aligned)
 _BK, _STAGES = 16, 3
-_BF16_SMEM = 4 * (16 * (64 + 4) + 16 * 64)
+_BK16, _STAGES16, _ALIGN16 = 64, 4, 1024
 NUM_SMS = 132                 # streaming multiprocessors of an H100 SXM
 
 
@@ -44,13 +45,34 @@ def conv_tile(M: int, O: int) -> tuple[int, int]:
     return bm, bn
 
 
+def conv_tile_bf16(M: int, O: int) -> tuple[int, int]:
+    """(pixels, channels) of the bf16 (``wgmma``) kernel's block tile, one
+    warpgroup per 64 pixels: 64 channels where O ≤ 64, and 64 pixels
+    where 128-pixel tiles would leave some of the 132 SMs without a block,
+    so the bench's M 8192 × O 128 gets 128 blocks of 64 × 128 (not 64 of
+    128 × 128).  It is the f32 rule: on an H100 it beat every fixed tile
+    over a ResNet-50 forward at bs 128 (2.05–2.09 ms against 2.21–2.72;
+    ``scripts/conv_mm_variants.py``, PERF.md §6)."""
+    return conv_tile(M, O)
+
+
+def _is_bf16(dtype) -> bool:
+    return str(dtype).removeprefix("torch.") == "bfloat16"
+
+
+def tile_for(M: int, O: int, dtype) -> tuple[int, int]:
+    """The tile the CUDA kernel launches for this GEMM and input type."""
+    return conv_tile_bf16(M, O) if _is_bf16(dtype) else conv_tile(M, O)
+
+
 def smem_bytes(bm: int, bn: int, dtype) -> int:
     """Shared memory of one block of the CUDA kernel: for f32 a ring of 3
-    stages of a bm × 16 A tile and a 16 × bn B tile, f32; for bf16 the
-    fixed 64 × 64 kernel's static arrays.  The kernel computes the same
-    number (``conv_mm_smem_bytes``)."""
-    if str(dtype).removeprefix("torch.") == "bfloat16":
-        return _BF16_SMEM
+    stages of a bm × 16 A tile and a 16 × bn B tile, f32; for bf16 1024
+    bytes of alignment slack and a ring of 4 stages of a bm × 64 A tile
+    and a 64 × bn B tile, bf16.  The kernel computes the same number
+    (``conv_mm_smem_bytes``)."""
+    if _is_bf16(dtype):
+        return _ALIGN16 + 2 * _STAGES16 * _BK16 * (bm + bn)
     return 4 * _STAGES * _BK * (bm + bn)
 
 
@@ -90,7 +112,7 @@ def cost(shape: dict, config: dict) -> KernelCost:
     bo = largest_dividing_block(O, config.get("block_o"))
     OH, OW, Hp, Wp = _geom(shape)
     bpe = bytes_per_element(shape["dtype"])
-    bm, bn = conv_tile(N * OH * OW, O)
+    bm, bn = tile_for(N * OH * OW, O, shape["dtype"])
     n_bo = O // bo
 
     flops = 2.0 * N * OH * OW * KH * KW * C * O

@@ -149,15 +149,56 @@ def test_conv_tile_rule(M, O, tile):
     assert tiling.conv_tile(M, O) == tile
 
 
+# the bf16 (wgmma) kernel's tile, BM pixels (one warpgroup per 64) by BN
+# channels: the kernel bench's GEMM, M 8192 x O 128, must give the 132 SMs at
+# least 128 blocks (64 of 128 x 128 would leave half of them idle)
+BF16_TILES = [
+    (8 * 32 * 32, 128, (64, 128)),      # the kernel bench's shape: 128 blocks
+    (128 * 32 * 32, 64, (128, 64)),     # bs 128, the 32x32 stage at O 64
+    (128 * 32 * 32, 256, (128, 128)),
+    (128 * 4 * 4, 2048, (128, 128)),    # 256 tiles of 128 x 128
+    (128 * 4 * 4, 512, (64, 128)),      # 64 tiles of 128 would leave SMs idle
+    (2 * 32 * 32, 64, (64, 64)),        # bs 2
+    (3 * 7 * 5, 70, (64, 128)),         # chip_smoke's O 70 edge case
+    (1, 1, (64, 64)),
+]
+
+
+@pytest.mark.parametrize("M,O,tile", BF16_TILES)
+def test_conv_tile_bf16_rule(M, O, tile):
+    """``conv_tile_bf16``, and ``tile_for`` picking it for bf16 only."""
+    assert tiling.conv_tile_bf16(M, O) == tile
+    assert tiling.tile_for(M, O, "bfloat16") == tiling.tile_for(M, O, torch.bfloat16) == tile
+    assert tiling.tile_for(M, O, torch.float32) == tiling.conv_tile(M, O)
+
+
+def test_conv_tile_bf16_fills_the_card_at_the_bench_shape():
+    M, O = 8 * 32 * 32, 128
+    bm, bn = tiling.conv_tile_bf16(M, O)
+    assert -(-M // bm) * -(-O // bn) >= 128
+
+
+@pytest.mark.parametrize("O", [1, 3, 8, 13, 64, 65, 70, 128, 256, 512, 2048])
+def test_every_bf16_tile_fits_a_block_s_shared_memory(O):
+    """Every tile the bf16 rule gives is one the kernel instantiates and
+    fits the 232,448 bytes of shared memory a Hopper block may take."""
+    for M in (1, 64, 105, 2048, 8192, 16384, 16896, 131072, 2**24):
+        bm, bn = tiling.conv_tile_bf16(M, O)
+        assert bm in (64, 128) and bn in (64, 128)
+        assert tiling.smem_bytes(bm, bn, "bfloat16") <= 232448
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("tile", [(64, 64), (64, 128), (128, 64), (128, 128)])
 def test_smem_bytes_formula(tile, dtype):
     """Shared memory of one block of the CUDA kernel (``conv_mm_smem_bytes``
     in the source): f32, a ring of 3 stages of a bm x 16 A tile and a
-    16 x bn B tile; bf16, the fixed 64 x 64 kernel's static 16 x 68 and
-    16 x 64 f32 arrays.  ``cost`` reports the rule's tile's."""
+    16 x bn B tile, f32; bf16, 1024 bytes of alignment slack and a ring of
+    4 stages of a bm x 64 A tile and a 64 x bn B tile, bf16.  ``cost``
+    reports the tile the dtype's rule gives."""
     bm, bn = tile
-    want = 4 * 3 * 16 * (bm + bn) if dtype == "float32" else 4 * (16 * 68 + 16 * 64)
+    want = (4 * 3 * 16 * (bm + bn) if dtype == "float32"
+            else 1024 + 2 * 4 * 64 * (bm + bn))
     assert tiling.smem_bytes(bm, bn, dtype) == want
     assert tiling.smem_bytes(bm, bn, TORCH_DT[dtype]) == want
     # a shape the rule gives this tile: N x 32 x 32 pixels, O channels
@@ -165,5 +206,5 @@ def test_smem_bytes_formula(tile, dtype):
     O = 64 if bn == 64 else 256
     shape = tiling.shape_key((N, 32, 32, 64), (3, 3, 64, O), stride=1, padding=1,
                              dtype=TORCH_DT[dtype])
-    assert tiling.conv_tile(N * 32 * 32, O) == tile
+    assert tiling.tile_for(N * 32 * 32, O, dtype) == tile
     assert tiling.cost(shape, tiling.default(shape)).smem_bytes == want

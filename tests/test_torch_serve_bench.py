@@ -12,9 +12,11 @@ reference runs its paged decode as its kernel computes it,
   clock, so the batches themselves may differ between runs);
 * the chunked row's step-count metrics (step-indexed TTFT, chunks, stalls)
   and ``kv_*_bytes`` equal the reference's;
-* ``run`` and the chaos row hold their invariants (chaos counts depend on
-  the wall clock, so they are held by invariant, not equality), and the
-  paged pool's block size is the one the reference's tuner resolves;
+* ``run`` and the chaos row hold their invariants, and the paged pool's
+  block size is the one the reference's tuner resolves; the chaos row
+  replays its trace on engine steps (``run_stepped``, where the
+  reference's follows the wall clock), each request submitted before the
+  step its arrival names;
 * where the tuner picks a block of the whole window (a device spec at
   full width), the reference's pool leaves half the slots idle and its
   whole prefills stall running slots for a block; the port's engine fits
@@ -241,6 +243,23 @@ def test_chunked_step_metrics_are_the_reference(model, monkeypatch):
     steps = [ln for ln in ref_lines if "ttft_steps_p99" in ln or "stall_tokens" in ln]
     assert [ln for ln in mine_lines if "ttft_steps_p99" in ln or "stall_tokens" in ln] \
         == steps
+
+
+def test_stepped_replay_submits_each_request_before_its_step(model):
+    """``run_stepped`` submits the request arriving at t s just before
+    engine step ⌊t / CHAOS_STEP_S⌋ + 1, whatever the host's speed, and the
+    engine serves every request."""
+    _, tcfg, _, tp = model
+    trace = serve_bench.make_trace(0)
+    ce = ContinuousEngine(tcfg, tp, ContinuousConfig(
+        max_len=serve_bench.MAX_LEN, n_slots=serve_bench.N_SLOTS, eos_id=0,
+        block_size=16), device="cpu")
+    submitted = []
+    submit = ce.submit
+    ce.submit = lambda req: submitted.append(ce._step) or submit(req)
+    serve_bench.run_stepped(ce, trace)
+    assert submitted == [int(a // serve_bench.CHAOS_STEP_S) for a, _, _ in trace]
+    assert len(ce.finished) == len(trace) and ce.idle
 
 
 def test_run_and_chaos_hold_their_invariants(model):
