@@ -12,7 +12,8 @@ Phases (any failure raises and the script exits non-zero):
    print ``-Xptxas -v`` (registers, spills) for each kernel instantiation
    and the count of tensor-core instructions (HGMMA, HMMA) in the SASS
    (``cuobjdump -sass``) of all four libraries, none of which may be 0
-   (``conv_mm``: HGMMA, its bf16 ``wgmma`` kernel); hold the shared memory
+   (``conv_mm``: HGMMA, its bf16 ``wgmma`` kernel), and of each f32 flash
+   instantiation on its own (HGMMA and HMMA, no spills); hold the shared memory
    the tiling models report against the sources' own formulas, all four
    kernels, ``conv_mm`` at every tile its two tile rules give;
 3. tune — the kernel autotuner on the card: a ``KernelTuner`` for this
@@ -30,12 +31,14 @@ Phases (any failure raises and the script exits non-zero):
    splits, each at the cache_len edges; f32), the MM convolution on
    every convolution shape of full-width ResNet-50 and on edge cases, f32
    and bf16, and at the kernel bench's bf16 shape,
-   flash attention at the qwen3-4b prefill shape and edge cases (fully
+   flash attention at the qwen3-4b prefill shape and edge cases in bf16
+   and f32 (decode, a chunk at an offset, head dims 64 and 32, fully
    masked rows against mean(V), also over a ragged last tile), the SSD
    intra-chunk pass at the mamba2-780m shape for every chunk the tuner may
    return, in f32 and with bf16 inputs; time kernel, plain version, a
    library yardstick and the bound with CUDA events (paged decode also at
-   each token tile and split);
+   each token tile and split, and in f32; flash also in f32, against the
+   CUDA-core and the 3xTF32 tensor-core bound);
 5. serve — first, while the served weights are drawn on the host and
    before they reach the card (so that which cells run out of memory does
    not depend on them), the campaign
@@ -238,7 +241,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-TF32_FLOPS = 495e12          # tensor cores, a ceiling for a later conv design
+TF32_FLOPS = 495e12          # tensor cores; 3xTF32 does three TF32 products an f32 one
 
 # qwen3-4b decode at the serving configuration below
 DECODE = dict(B=8, H=32, Hkv=8, Dh=128, bs=256, NB=8)
@@ -362,9 +365,11 @@ def ptxas_kernels(log: str) -> list[tuple[str, int, int]]:
     return out
 
 
-def sass_mma_count(lib_path: str) -> dict | None:
+def sass_mma_count(lib_path: str, by_function: bool = False) -> dict | None:
     """Tensor-core instructions (HGMMA, HMMA) in a library's SASS, from
-    ``cuobjdump -sass``; None where the tool is not available."""
+    ``cuobjdump -sass``: ``{op: n}`` over the library, or with
+    ``by_function`` ``{kernel instantiation: {op: n}}``; None where the
+    tool is not available."""
     import os
     import shutil
 
@@ -375,9 +380,49 @@ def sass_mma_count(lib_path: str) -> dict | None:
     proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True)
     if proc.returncode != 0:
         return None
-    words = [line.split() for line in proc.stdout.splitlines()]
-    return {op: sum(any(w.startswith(op + ".") or w == op for w in ws) for ws in words)
-            for op in ("HGMMA", "HMMA")}
+    ops = ("HGMMA", "HMMA")
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split("Function :")[1].strip())
+            counts.setdefault(name, dict.fromkeys(ops, 0))
+            continue
+        words = line.split()
+        for op in ops:
+            if name and any(w.startswith(op + ".") or w == op for w in words):
+                counts[name][op] += 1
+    if by_function:
+        return counts
+    return {op: sum(c[op] for c in counts.values()) for op in ops}
+
+
+FLASH_F32_INSTANTIATIONS = {f"flash_attention_f32_kernel<{dh}, {bn}>"
+                            for dh in (32, 64, 128) for bn in (32, 64)}
+
+
+def check_flash_f32_build(lib_path: str, log: str) -> None:
+    """Every f32 flash instantiation (head dim × K/V tile) has both kinds
+    of tensor-core instruction in its own SASS (HGMMA: S = Q Kᵀ on
+    ``wgmma``; HMMA: O += P V on ``mma.sync``; both in 3xTF32; the
+    library-wide count cannot show it, the bf16 kernel's HGMMA being in
+    the same library) and spills nothing."""
+    sass = sass_mma_count(lib_path, by_function=True)
+    if sass is None:
+        raise AssertionError("cuobjdump is needed to show the f32 flash kernel's "
+                             "tensor-core instructions")
+    f32 = {k: v for k, v in sass.items() if k.startswith("flash_attention_f32_kernel")}
+    spills = {k: s for k, _, s in ptxas_kernels(log) if k.startswith("flash_attention_f32_kernel")}
+    print("build flash_attention f32 instantiations (SASS, ptxas): " + "; ".join(
+        f"{k} HMMA {f32[k]['HMMA']} HGMMA {f32[k]['HGMMA']}, {spills.get(k)} bytes spilled"
+        for k in sorted(f32)))
+    if set(f32) != FLASH_F32_INSTANTIATIONS or set(spills) != FLASH_F32_INSTANTIATIONS:
+        raise AssertionError(f"f32 flash instantiations {sorted(f32)} / {sorted(spills)}, "
+                             f"expected {sorted(FLASH_F32_INSTANTIATIONS)}")
+    bad = [k for k in f32
+           if not (f32[k]["HGMMA"] > 0 and f32[k]["HMMA"] > 0) or spills[k] != 0]
+    if bad:
+        raise AssertionError(f"f32 flash instantiations without HGMMA and HMMA, or with "
+                             f"spills: {bad}")
 
 
 def decode_case(dtype, Dh, cache_lens, seed=0, H=None, Hkv=None):
@@ -508,8 +553,32 @@ def kernel_phase(flush) -> dict:
                               flush) for ns in (1, 2, 4, 8)}
         print(f"timing paged_decode same inputs, block_kv={bkv}, by n_splits: " + ", ".join(
             f"{ns}: {t:.4f} ms" for ns, t in splits.items()))
+
+    # f32 q and pools (the CUDA-core kernel) at the same shape and fills, at
+    # each split (no tuner: its launches would count in the serve window),
+    # beside gather + SDPA in f32 and the bytes bound of f32 pools
+    args32 = decode_case(torch.float32, DECODE["Dh"], fills.tolist(), seed=1)
+    want32 = paged_decode_ref(*args32)
+    err32 = max(decode_check("serving shape f32", args32, want32, n_splits=ns)
+                for ns in (1, 2, 4, 8))
+    lib_err32 = float((library_decode(*args32) - want32).abs().max())
+    splits32 = {ns: time_ms(lambda: paged_decode_cuda(*args32, n_splits=ns), flush)
+                for ns in (1, 2, 4, 8)}
+    best32 = min(splits32, key=splits32.get)
+    plain32 = time_ms(lambda: paged_decode_ref(*args32), flush)
+    library32 = time_ms(lambda: library_decode(*args32), flush)
+    bound32, bound32_by = bound(args32[0], args32[1], args32[4])
+    print(f"timing paged_decode B=8 H=32 Hkv=8 Dh=128 bs=256 NB=8 f32 (CUDA-core kernel) "
+          f"live_tokens={live}, by n_splits: " + ", ".join(
+              f"{ns}: {t:.4f} ms" for ns, t in splits32.items())
+          + f"; plain {plain32:.4f} ms, gather+sdpa f32 {library32:.4f} ms (max_abs_err vs "
+          f"plain {lib_err32:.3e}; the kernel's {err32:.3e}), bound {bound32:.4f} ms "
+          f"({bound32_by}) -> {bound32 / splits32[best32]:.1%} of bound at n_splits {best32}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "f32_ms": splits32[best32], "f32_n_splits": best32, "f32_max_abs_err": err32,
+            "f32_plain_ms": plain32, "f32_library_ms": library32,
+            "f32_bound_ms": bound32, "f32_bound_by": bound32_by}
 
 
 def host_draw(cfg):
@@ -2429,10 +2498,11 @@ def flash_check(gen, label, B, H, Hkv, Sq, Sk, Dh, dtype, *, causal=True,
 def flash_kernel_phase(flush, tuned: dict) -> dict:
     """flash attention against its plain version at the qwen3-4b prefill
     shape (bf16 and f32, each at its tuned config), a 512-query chunk at
-    q_offset 1024, decode (Sq = 1), S = 384, head dims 64 and 32 (bf16: each
-    head dim is its own tensor-core instantiation) and fully masked rows,
-    also with a ragged last K/V tile (Sk = 200); then kernel, plain version
-    and ``scaled_dot_product_attention`` timed at the prefill shape."""
+    q_offset 1024, decode (Sq = 1), S = 384, head dims 64 and 32 (each head
+    dim is its own tensor-core instantiation), in both types, and fully
+    masked rows, also with a ragged last K/V tile (Sk = 200); then kernel,
+    plain version and ``scaled_dot_product_attention`` timed at the prefill
+    shape, in bf16 and in f32."""
     import torch
     import torch.nn.functional as F
 
@@ -2444,8 +2514,8 @@ def flash_kernel_phase(flush, tuned: dict) -> dict:
     pre, dec = tuned["flash_prefill"], tuned["flash_decode"]
     err, (q, k, v, _) = flash_check(gen, "qwen3-4b prefill (tuned)", B, H, Hkv, S, S,
                                     Dh, torch.bfloat16, **pre)
-    flash_check(gen, "qwen3-4b prefill (tuned for f32)", B, H, Hkv, S, S, Dh,
-                torch.float32, **tuned["flash_prefill_f32"])
+    f32_err, _ = flash_check(gen, "qwen3-4b prefill (tuned for f32)", B, H, Hkv, S, S, Dh,
+                             torch.float32, **tuned["flash_prefill_f32"])
     flash_check(gen, "qwen3-4b prefill (default blocks)", B, H, Hkv, S, S, Dh,
                 torch.bfloat16)
     flash_check(gen, "512-query chunk", B, H, Hkv, 512, S, Dh, torch.bfloat16,
@@ -2474,6 +2544,16 @@ def flash_kernel_phase(flush, tuned: dict) -> dict:
               f"mean(V): max_abs_err={mean_err:.3e} (tol {FLASH_TOL[name]})")
         if not mean_err <= FLASH_TOL[name]:
             raise AssertionError(f"fully masked rows are not mean(V): {mean_err}")
+    # the f32 (3xTF32) kernel at the bf16 checks' other edges, drawn after
+    # them so that their inputs stay as they were: decode (one query row, 15
+    # of its warp's 16 fragment rows idle), the chunk at q_offset 1024, Dh 32
+    f32_err = max(f32_err,
+                  flash_check(gen, "decode (tuned)", B, H, Hkv, 1, S, Dh, torch.float32,
+                              q_offset=S - 1, **dec)[0],
+                  flash_check(gen, "512-query chunk", B, H, Hkv, 512, S, Dh, torch.float32,
+                              q_offset=1024)[0],
+                  flash_check(gen, "Dh=32", 2, 8, 2, 256, 256, 32, torch.float32,
+                              block_q=128, block_k=64)[0])
 
     kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
     lib_err = float((F.scaled_dot_product_attention(q, kr, vr, is_causal=True).float()
@@ -2494,27 +2574,41 @@ def flash_kernel_phase(flush, tuned: dict) -> dict:
           f"scaled_dot_product_attention {library_ms:.4f} ms (max_abs_err vs plain "
           f"{lib_err:.3e}), bound {bound_ms:.4f} ms ({bound_by}) -> "
           f"{bound_ms / ms:.1%} of bound")
-    # f32 at the same shape: the scalar f32 kernel at its tuned config and
-    # SDPA in f32 (matmul TF32 is off for the whole script), on the same
-    # values upcast; the f32 kernel's error is gated by the f32 check above
+    # f32 at the same shape: the 3xTF32 kernel at its tuned config, the plain
+    # version and SDPA in f32 (matmul TF32 is off for the whole script), on
+    # the same values upcast; the kernel's error is gated by the f32 checks
+    # above.  Two bounds: the f32 work on the CUDA cores (67 TFLOP/s) and
+    # three TF32 products for each f32 one on the tensor cores (495)
     q32, k32, v32 = (t.float() for t in (q, k, v))
     kr32, vr32 = (t.repeat_interleave(H // Hkv, dim=1) for t in (k32, v32))
-    f32_ms = time_ms(lambda: flash_attention_cuda(q32, k32, v32, **tuned["flash_prefill_f32"]),
-                     flush, 3, 1)
+    cfg32 = tuned["flash_prefill_f32"]
+    f32_lib_err = float((F.scaled_dot_product_attention(q32, kr32, vr32, is_causal=True)
+                         - attention_ref(q32, k32, v32)).abs().max())
+    f32_ms = time_ms(lambda: flash_attention_cuda(q32, k32, v32, **cfg32), flush, 10, 2)
+    f32_plain_ms = time_ms(lambda: attention_ref(q32, k32, v32), flush, 5, 1)
     f32_library_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(q32, kr32, vr32, is_causal=True), flush, 3, 1)
+        lambda: F.scaled_dot_product_attention(q32, kr32, vr32, is_causal=True), flush, 10, 2)
+    f32_ms_again = time_ms(lambda: flash_attention_cuda(q32, k32, v32, **cfg32), flush, 10, 2)
     t_ops32, t_bytes32 = flops / F32_FLOPS, 2 * nbytes / HBM_BYTES_PER_S
     f32_bound_ms = max(t_ops32, t_bytes32) * 1e3
+    t_tc32 = 3 * flops / TF32_FLOPS
+    f32_bound_tc_ms = max(t_tc32, t_bytes32) * 1e3
     print(f"timing flash_attention qwen3-4b prefill B={B} H={H} Hkv={Hkv} S={S} Dh={Dh} f32 "
-          f"causal at {tuned['flash_prefill_f32']}: kernel {f32_ms:.4f} ms, "
+          f"causal at {cfg32}: kernel {f32_ms:.4f} / {f32_ms_again:.4f} ms "
+          f"({flops / f32_ms / 1e9:.1f} TFLOP/s), plain {f32_plain_ms:.4f} ms, "
           f"scaled_dot_product_attention f32 {f32_library_ms:.4f} ms "
-          f"({f32_ms / f32_library_ms:.2f}x), bound {f32_bound_ms:.4f} ms "
+          f"({f32_ms / f32_library_ms:.2f}x; its max_abs_err vs plain {f32_lib_err:.3e}, the "
+          f"kernel's {f32_err:.3e}); bound {f32_bound_tc_ms:.4f} ms "
+          f"({'operations' if t_tc32 >= t_bytes32 else 'bytes'}, 3xTF32 on the tensor cores) -> "
+          f"{f32_bound_tc_ms / f32_ms:.1%} of bound; {f32_bound_ms:.4f} ms "
           f"({'operations' if t_ops32 >= t_bytes32 else 'bytes'}, CUDA-core f32) -> "
-          f"{f32_bound_ms / f32_ms:.1%} of bound")
+          f"{f32_bound_ms / f32_ms:.1%}")
     del q32, k32, v32, kr32, vr32
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "f32_ms": f32_ms, "f32_library_ms": f32_library_ms, "f32_bound_ms": f32_bound_ms}
+            "f32_max_abs_err": f32_err, "f32_ms": f32_ms, "f32_plain_ms": f32_plain_ms,
+            "f32_library_ms": f32_library_ms, "f32_library_max_abs_err": f32_lib_err,
+            "f32_bound_ms": f32_bound_ms, "f32_bound_tc_ms": f32_bound_tc_ms}
 
 
 def ssd_kernel_phase(flush, tuned: dict) -> dict:
@@ -4157,8 +4251,9 @@ def main() -> int:
         log = Path(lib._name).with_suffix(".log").read_text()
         print(f"build {name} ptxas -v by instantiation: " + "; ".join(
             f"{k} {regs} registers, {spill} bytes spilled" for k, regs, spill in ptxas_kernels(log)))
-    # the tensor-core kernels: bf16 paged decode, flash and conv_mm, ssd_chunk
-    # (3xTF32); conv_mm's bf16 kernel is a wgmma kernel (HGMMA)
+    # the tensor-core kernels: bf16 paged decode, flash (bf16 and f32) and
+    # conv_mm, ssd_chunk (3xTF32); conv_mm's bf16 kernel is a wgmma kernel
+    # (HGMMA); every f32 flash instantiation is held on its own
     for name, lib in zip(wrappers, libs):
         mma = sass_mma_count(lib._name)
         if mma is None:
@@ -4170,6 +4265,7 @@ def main() -> int:
             raise AssertionError(f"the {name} library has no tensor-core instruction")
         if name == "conv_mm" and not mma["HGMMA"] > 0:
             raise AssertionError("the conv_mm library has no HGMMA instruction")
+    check_flash_f32_build(libs[2]._name, Path(libs[2]._name).with_suffix(".log").read_text())
     check_smem_formulas(libs[2], libs[3], libs[1], libs[0])
 
     t0 = time.perf_counter()

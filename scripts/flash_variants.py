@@ -15,7 +15,7 @@ each a library with the kernel's own C interface:
 
 At the qwen3-4b prefill shape (B 8, H 32 over 8 KV heads, S 2048, Dh 128,
 causal; bf16 inputs drawn on the card from seeds 0, 1, ...) it prints, for
-each split and for the f32 scalar kernel of the same library (the inputs
+each split and for the f32 kernel of the same library (the inputs
 upcast), the largest error of the f32 output against ``attention_ref``
 (f32) and the expected count of outputs whose bf16 rounding differs from
 the reference's by an ulp of 2^-6 or more: the sum over outputs with
@@ -145,7 +145,7 @@ def main() -> int:
     jobs = {**{f"{n}, f32 out": e + F32_OUT for n, e in SPLITS.items()}, **TIMED}
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda kv: build(*kv), jobs.items())))
-    scalar = flash_attention_cuda.load()
+    f32_lib = flash_attention_cuda.load()
 
     shapes = ((8, 32, 2048, 128), (8, 8, 2048, 128), (8, 8, 2048, 128))
     for seed in range(args.seeds):
@@ -153,8 +153,8 @@ def main() -> int:
         q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
                    for s in shapes)
         ref = attention_ref(q.float(), k.float(), v.float())
-        outs = {"f32 scalar kernel": launch(scalar, q.float(), k.float(), v.float(),
-                                            torch.empty_like(ref), 2048, 256)}
+        outs = {"f32 kernel": launch(f32_lib, q.float(), k.float(), v.float(),
+                                     torch.empty_like(ref), 2048, 256)}
         for name in SPLITS:
             outs[name] = launch(libs[f"{name}, f32 out"], q, k, v, torch.empty_like(ref))
         torch.cuda.synchronize()

@@ -51,13 +51,40 @@
 //     row's maximum is a real score).  A pass with a fully masked row
 //     reads every tile, so that row averages all of V.
 //
-// f32 inputs: `flash_attention_f32_kernel`, scalar f32 FMAs on the CUDA
-// cores (no tensor-core path keeps f32 to the 1e-4 gate; TF32 keeps about
-// three digits).  256 threads; the block walks its rows in 64-row passes
-// (q pre-scaled, f32, in shared memory); block_k is the online-softmax
-// step, a 64 x block_k f32 score strip in shared memory, K and V staged
-// through one 64-row buffer.  Shared memory 4 * (64 (Dh+1) + 64 (Dh+1) +
-// 64 (block_k+1) + 192) bytes.
+// f32 inputs: `flash_attention_f32_kernel`, on the tensor cores in 3xTF32.
+//   * Bound: operations.  One TF32 product keeps about three digits (an
+//     error near 1e-3 against the 1e-4 gate), so each f32 product is three
+//     TF32 products: x = hi + lo with hi = x, its low 13 mantissa bits
+//     cleared, and lo = x - hi exactly, of which the tensor cores read the
+//     TF32 part; a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first
+//     (an error near 1e-6).  The bound is three times the work at the TF32
+//     rate (495 TFLOP/s); on the CUDA cores it would be the work at 67.
+//   * Eight warps, two warpgroups of 64 query rows of a 128-row pass (16 a
+//     warp); the block walks its block_q rows in passes.  S and P stay in
+//     registers; the online softmax runs on the accumulator fragments (a
+//     thread holds two rows, reduced over the 4 threads of a quad).
+//   * S = Q K^T is `wgmma.m64nNk8` TF32 (N = the K/V tile), three a k-step.
+//     A comes from registers: q, pre-scaled, lies in shared memory for the
+//     pass and is split as its fragments are loaded (`ldmatrix`).  B comes
+//     from shared memory, K-major, 128-byte swizzled: the raw K tile is its
+//     own hi part (the tensor cores read only its TF32 bits), and each tile
+//     K - hi is written once beside it in the same layout, for the block.
+//   * O += P V is `mma.sync.m16n8k8` TF32, three a product, a warp's 16 rows
+//     at a time: the C fragment holds keys 2t and 2t + 1 of each 8-key slice
+//     of P, used as A's k-columns t and t + 4, and V's B fragment is read at
+//     keys 8j + 2t and 8j + 2t + 1 to match and split in registers.  V would
+//     need a transposed tile (and its lo part) in shared memory for `wgmma`,
+//     which the budget does not hold beside the ring.
+//   * K and V stream through a kF32Stages-deep `cp.async` ring of f32 tiles
+//     of BN keys (`f32_kv_tile`: 32 for block_k <= 32, else 64 where it
+//     fits); V's rows are padded to Dh + 4 floats, so its fragment loads are
+//     free of bank conflicts, as the swizzle makes Q's.  Keys past Sk are
+//     zero-filled and dropped (score -inf, weight exactly 0).
+//   * The causal early stop and the skip of tiles masked for all rows of a
+//     warpgroup are the bf16 kernel's; a warpgroup with a fully masked row
+//     reads every tile.  Shared memory 1024 B of alignment slack and 4
+//     (kF32Rows Dh + (kF32Stages + 1) BN Dh + kF32Stages BN (Dh + 4)) bytes
+//     (`flash_attention_smem_bytes`).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,208 +96,6 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxSmem = 232448;
-
-// ---------------------------------------------------------------------------
-// f32: scalar kernel on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;                // query rows per pass
-constexpr int kKeys = 64;                // keys per K/V stage
-constexpr int kTR = 4;                   // rows per thread
-constexpr int kTC = kKeys / 16;          // keys per thread in a stage
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-size_t f32_smem_bytes(int Dh, int block_k) {
-  return sizeof(float) * ((size_t)kRows * (Dh + 1) + (size_t)kKeys * (Dh + 1) +
-                          (size_t)kRows * (block_k + 1) + 3 * kRows);
-}
-
-// rows [0, n) of a (rows, DH) tile at src -> dst (stride DH + 1);
-// rows n..kKeys-1 are zero
-template <int DH>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
-  for (int i = threadIdx.x; i < kKeys * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    dst[r * (DH + 1) + d] = r < n ? src[(size_t)r * DH + d] : 0.f;
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ out, int H,
-                           int Hkv, int Sq, int Sk, int block_q, int block_k, int causal,
-                           int q_offset, float scale) {
-  constexpr int LD = DH + 1;
-  constexpr int DPT = DH / 16;           // accumulator columns per thread
-  extern __shared__ float smem[];
-  const int ldS = block_k + 1;
-  float* Qs = smem;                      // kRows x LD
-  float* KVs = Qs + kRows * LD;          // kKeys x LD
-  float* Ss = KVs + kKeys * LD;          // kRows x ldS
-  float* m_s = Ss + kRows * ldS;         // kRows
-  float* l_s = m_s + kRows;
-  float* a_s = l_s + kRows;
-
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
-  const float* qh = q + (size_t)(b * H + h) * Sq * DH;
-  const float* kh = k + (size_t)(b * Hkv + hk) * Sk * DH;
-  const float* vh = v + (size_t)(b * Hkv + hk) * Sk * DH;
-  float* oh = out + (size_t)(b * H + h) * Sq * DH;
-
-  const int row_begin = blockIdx.x * block_q;
-  const int row_end = min(row_begin + block_q, Sq);
-  for (int r0 = row_begin; r0 < row_end; r0 += kRows) {
-    const int nr = min(kRows, row_end - r0);
-    for (int i = tid; i < kRows * DH; i += kThreads) {
-      const int r = i / DH, d = i % DH;
-      Qs[r * LD + d] = r < nr ? qh[(size_t)(r0 + r) * DH + d] * scale : 0.f;
-    }
-    for (int r = tid; r < kRows; r += kThreads) {
-      m_s[r] = kNegInf;
-      l_s[r] = 0.f;
-    }
-    float acc[kTR][DPT];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i)
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-
-    int k_end = Sk;
-    if (causal && q_offset + r0 >= 0) k_end = min(Sk, q_offset + r0 + nr);
-    for (int k0 = 0; k0 < k_end; k0 += block_k) {
-      const int w = min(block_k, Sk - k0);
-      // 1. the score strip S[r][c] = q_r . k_(k0+c), masked
-      for (int p0 = 0; p0 < w; p0 += kKeys) {
-        const int pw = min(kKeys, w - p0);
-        __syncthreads();                   // KVs free (and Qs, m_s, l_s written)
-        stage<DH>(KVs, kh + (size_t)(k0 + p0) * DH, pw);
-        __syncthreads();
-        float s[kTR][kTC];
-#pragma unroll
-        for (int i = 0; i < kTR; ++i)
-#pragma unroll
-          for (int j = 0; j < kTC; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < DH; ++d) {
-          float qv[kTR], kv[kTC];
-#pragma unroll
-          for (int i = 0; i < kTR; ++i) qv[i] = Qs[(tr * kTR + i) * LD + d];
-#pragma unroll
-          for (int j = 0; j < kTC; ++j) kv[j] = KVs[(tc + 16 * j) * LD + d];
-#pragma unroll
-          for (int i = 0; i < kTR; ++i)
-#pragma unroll
-            for (int j = 0; j < kTC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < kTR; ++i) {
-          const int r = tr * kTR + i;
-#pragma unroll
-          for (int j = 0; j < kTC; ++j) {
-            const int c = tc + 16 * j;
-            if (c < pw) {
-              const bool masked = causal && (q_offset + r0 + r < k0 + p0 + c);
-              Ss[r * ldS + p0 + c] = masked ? kNegInf : s[i][j];
-            }
-          }
-        }
-      }
-      __syncthreads();
-      // 2. online softmax over the step: one warp per 8 rows
-      for (int rr = 0; rr < kRows / kWarps; ++rr) {
-        const int r = warp * (kRows / kWarps) + rr;
-        float* row = Ss + r * ldS;
-        float mx = kNegInf;
-        for (int c = lane; c < w; c += 32) mx = fmaxf(mx, row[c]);
-        mx = warp_max(mx);
-        const float m_prev = m_s[r];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int c = lane; c < w; c += 32) {
-          const float p = __expf(row[c] - m_new);
-          row[c] = p;
-          sum += p;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float alpha = __expf(m_prev - m_new);
-          a_s[r] = alpha;
-          l_s[r] = l_s[r] * alpha + sum;
-          m_s[r] = m_new;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) {
-        const float alpha = a_s[tr * kTR + i];
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
-      }
-      // 3. acc += P V, V staged through the same buffer
-      for (int p0 = 0; p0 < w; p0 += kKeys) {
-        const int pw = min(kKeys, w - p0);
-        __syncthreads();
-        stage<DH>(KVs, vh + (size_t)(k0 + p0) * DH, pw);
-        __syncthreads();
-        for (int c = 0; c < pw; ++c) {
-          float pv[kTR];
-#pragma unroll
-          for (int i = 0; i < kTR; ++i) pv[i] = Ss[(tr * kTR + i) * ldS + p0 + c];
-#pragma unroll
-          for (int j = 0; j < DPT; ++j) {
-            const float vv = KVs[c * LD + tc + 16 * j];
-#pragma unroll
-            for (int i = 0; i < kTR; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();                       // l_s final
-#pragma unroll
-    for (int i = 0; i < kTR; ++i) {
-      const int r = tr * kTR + i;
-      if (r < nr) {
-        const float inv = 1.f / l_s[r];
-#pragma unroll
-        for (int j = 0; j < DPT; ++j)
-          oh[(size_t)(r0 + r) * DH + tc + 16 * j] = acc[i][j] * inv;
-      }
-    }
-    __syncthreads();                       // before the next pass rewrites Qs, m_s, l_s
-  }
-}
-
-template <int DH>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H,
-                       int Hkv, int Sq, int Sk, int block_q, int block_k, int causal,
-                       int q_offset, float scale, cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(DH, block_k);
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = flash_attention_f32_kernel<DH>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((Sq + block_q - 1) / block_q, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, Sq, Sk, block_q,
-      block_k, causal, q_offset, scale);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma), TMA and an mbarrier ring
@@ -755,13 +580,388 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 on the tensor cores (S on wgmma, P V on mma.sync), a cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Warps = 8;
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kF32Rows = 16 * kF32Warps;      // query rows per pass: 16 a warp
+constexpr int kF32Stages = 2;                 // K/V ring depth
+
+size_t f32_smem_bytes(int Dh, int bn) {
+  return 1024 + 4 * ((size_t)kF32Rows * Dh + (size_t)(kF32Stages + 1) * bn * Dh +
+                     (size_t)kF32Stages * bn * (Dh + 4));
+}
+
+// keys in one K/V tile of the f32 kernel
+int f32_kv_tile(int Dh, int block_k) {
+  return block_k > 32 && f32_smem_bytes(Dh, 64) <= (size_t)kMaxSmem ? 64 : 32;
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where `src_bytes` is 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// four 8 x 4 f32 matrices (rows of 16 bytes, one address per lane: lanes
+// 8i..8i+7 give the rows of matrix i); lane l gets element (l / 4, l % 4)
+// of matrix i in r[i], the layout of an m16n8k8 TF32 fragment
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// x = hi + lo: hi is x with its low 13 mantissa bits cleared (a TF32
+// value), lo = x - hi exactly; the tensor cores read lo's TF32 part
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = x & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+template <int N> struct WgmmaTf32;
+
+template <> struct WgmmaTf32<32> {
+  // d(64 x 32) += a(64 x 8) b(8 x 32); a in registers, b K-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaTf32<64> {
+  // d(64 x 64) += a(64 x 8) b(8 x 64); a in registers, b K-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+        : "memory");
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from reusing an in-flight wgmma's A registers
+__device__ __forceinline__ void hold_regs(const uint32_t (&r)[4]) {
+  asm volatile("" ::"r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
+}
+
+// float offset of 16-byte chunk c of row r in a [c / 8][rows][32] f32 tile
+// whose 128-byte rows are swizzled (chunk c % 8 at (c % 8) ^ (r % 8)), the
+// layout `wgmma` reads through a 128-byte-swizzle descriptor
+__device__ __forceinline__ int swz(int rows, int r, int c) {
+  return (c >> 3) * rows * 32 + r * 32 + (((c & 7) ^ (r & 7)) << 2);
+}
+
+template <int DH, int BN>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ out, int H,
+                           int Hkv, int Sq, int Sk, int block_q, int causal, int q_offset,
+                           float scale) {
+  constexpr int LD = DH + 4;                 // V's shared-memory row stride, floats
+  constexpr int CH = DH / 4;                 // 16-byte chunks of a row
+  constexpr int NT = DH / 8;                 // 8-column tiles of the output
+  constexpr int KT = BN / 8;                 // 8-key slices of a K/V tile
+  constexpr float kLog2e = 1.4426950408889634f;
+
+  extern __shared__ __align__(16) float smem_f32[];
+  float* base = smem_f32 + (((smem_addr(smem_f32) + 1023u) & ~1023u) - smem_addr(smem_f32)) / 4;
+  float* Qs = base;                          // kF32Rows x DH, swizzled: q * scale
+  float* Kr = Qs + kF32Rows * DH;            // kF32Stages x BN x DH, swizzled: K (its hi part)
+  float* Kl = Kr + kF32Stages * BN * DH;     // BN x DH, swizzled: K - hi
+  float* Vs = Kl + BN * DH;                  // kF32Stages x BN x LD
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (H / Hkv);
+  const int qb = gridDim.z - 1 - blockIdx.z;
+  const int row_begin = qb * block_q;
+  const int row_end = min(row_begin + block_q, Sq);
+  const float* qh = q + (size_t)(b * H + h) * Sq * DH;
+  const float* kh = k + (size_t)(b * Hkv + hk) * Sk * DH;
+  const float* vh = v + (size_t)(b * Hkv + hk) * Sk * DH;
+  float* oh = out + (size_t)(b * H + h) * Sq * DH;
+
+  // the K and V rows of tile t -> stage s
+  auto load_tile = [&](int t, int s) {
+    for (int i = tid; i < BN * CH; i += kF32Threads) {
+      const int r = i / CH, c = i % CH, key = t * BN + r;
+      const size_t off = (size_t)min(key, Sk - 1) * DH + 4 * c;
+      const int bytes = key < Sk ? 16 : 0;
+      cp_async16(smem_addr(Kr + s * BN * DH + swz(BN, r, c)), kh + off, bytes);
+      cp_async16(smem_addr(Vs + (s * BN + r) * LD + 4 * c), vh + off, bytes);
+    }
+  };
+
+  // ldmatrix rows of this warp's Q fragments: row (li & 1) * 8 + lr of its
+  // 16, chunk 2 kk + (li >> 1) of k-step kk
+  const int lr = lane % 8, li = lane / 8;
+  const int q_row = 16 * warp + (li & 1) * 8 + lr;
+  const int wg = warp / 4;
+
+  for (int r0 = row_begin; r0 < row_end; r0 += kF32Rows) {
+    const int nr = min(kF32Rows, row_end - r0);
+    const int n_tiles = (kv_end(r0, nr, Sk, causal, q_offset) + BN - 1) / BN;
+    const int gr0 = r0 + 64 * wg;                      // the warpgroup's first row
+    const int gnr = min(64, row_end - gr0);
+    const int g_tiles = gnr > 0 ? (kv_end(gr0, gnr, Sk, causal, q_offset) + BN - 1) / BN : 0;
+    const int wr0 = r0 + 16 * warp;                    // the warp's first row
+    const int pos_a = q_offset + wr0 + g, pos_b = pos_a + 8;
+
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < kF32Stages - 1; ++p) {
+      if (p < n_tiles) load_tile(p, p);
+      cp_async_commit();
+    }
+    for (int i = tid; i < kF32Rows * CH; i += kF32Threads) {
+      const int r = i / CH, c = i % CH;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nr) {
+        x = *reinterpret_cast<const float4*>(qh + (size_t)(r0 + r) * DH + 4 * c);
+        x.x *= scale;
+        x.y *= scale;
+        x.z *= scale;
+        x.w *= scale;
+      }
+      *reinterpret_cast<float4*>(Qs + swz(kF32Rows, r, c)) = x;
+    }
+
+    float o[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int nt_ = t + kF32Stages - 1;
+      if (nt_ < n_tiles) load_tile(nt_, nt_ % kF32Stages);
+      cp_async_commit();
+      cp_async_wait<kF32Stages - 1>();
+      __syncthreads();                       // tile t (and Q) landed for every thread
+      const int s = t % kF32Stages;
+      // K's lo part beside its raw tile, in the same layout
+      {
+        const float4* src = reinterpret_cast<const float4*>(Kr + s * BN * DH);
+        float4* dst = reinterpret_cast<float4*>(Kl);
+        for (int i = tid; i < BN * CH; i += kF32Threads) {
+          float4 x = src[i];
+          x.x -= __uint_as_float(__float_as_uint(x.x) & 0xffffe000u);
+          x.y -= __uint_as_float(__float_as_uint(x.y) & 0xffffe000u);
+          x.z -= __uint_as_float(__float_as_uint(x.z) & 0xffffe000u);
+          x.w -= __uint_as_float(__float_as_uint(x.w) & 0xffffe000u);
+          dst[i] = x;
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();                       // K's lo part written and visible to wgmma
+      if (t < g_tiles) {
+        // S = Q K^T: per k-step, a_lo K_hi + a_hi K_lo + a_hi K_hi on wgmma
+        float sc[BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+        const uint32_t kr = smem_addr(Kr + s * BN * DH), kl = smem_addr(Kl);
+        uint32_t ah_prev[4], al_prev[4];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 8; ++kk) {
+          uint32_t a[4], ah[4], al[4];
+          ldsm_x4(smem_addr(Qs + swz(kF32Rows, q_row, 2 * kk + (li >> 1))), a);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+          const uint32_t off = (kk / 4) * BN * 128 + (kk % 4) * 32;
+          wgmma_fence();
+          WgmmaTf32<BN>::rs(sc, al, gmma_desc<128>(kr + off, 16, 1024));
+          WgmmaTf32<BN>::rs(sc, ah, gmma_desc<128>(kl + off, 16, 1024));
+          WgmmaTf32<BN>::rs(sc, ah, gmma_desc<128>(kr + off, 16, 1024));
+          wgmma_commit();
+          if (kk > 0) {
+            wgmma_wait<1>();
+            hold_regs(ah_prev);
+            hold_regs(al_prev);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ah_prev[i] = ah[i];
+            al_prev[i] = al[i];
+          }
+        }
+        wgmma_wait<0>();
+        hold_regs(ah_prev);
+        hold_regs(al_prev);
+        fence_regs(sc);
+
+        // mask, online softmax (log2 domain)
+        const int k0 = t * BN;
+        const bool edge = k0 + BN > Sk;
+        const bool diag = causal && k0 + BN - 1 > q_offset + wr0;
+        const float neg_inf = __int_as_float(static_cast<int>(0xff800000u));
+        float mx_a = neg_inf, mx_b = neg_inf;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float va = sc[4 * j + e] * kLog2e, vb = sc[4 * j + 2 + e] * kLog2e;
+            if (edge || diag) {
+              const int key = k0 + 8 * j + 2 * t4 + e;
+              if (key >= Sk) {
+                va = vb = neg_inf;
+              } else if (causal) {
+                if (key > pos_a) va = kNegInf;
+                if (key > pos_b) vb = kNegInf;
+              }
+            }
+            sc[4 * j + e] = va;
+            sc[4 * j + 2 + e] = vb;
+            mx_a = fmaxf(mx_a, va);
+            mx_b = fmaxf(mx_b, vb);
+          }
+        }
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+        const float al_a = ex2(m_a - mn_a), al_b = ex2(m_b - mn_b);
+        m_a = mn_a;
+        m_b = mn_b;
+        float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          sc[4 * j] = ex2(sc[4 * j] - mn_a);
+          sc[4 * j + 1] = ex2(sc[4 * j + 1] - mn_a);
+          sc[4 * j + 2] = ex2(sc[4 * j + 2] - mn_b);
+          sc[4 * j + 3] = ex2(sc[4 * j + 3] - mn_b);
+          sum_a += sc[4 * j] + sc[4 * j + 1];
+          sum_b += sc[4 * j + 2] + sc[4 * j + 3];
+        }
+        l_a = l_a * al_a + sum_a;
+        l_b = l_b * al_b + sum_b;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          o[j][0] *= al_a;
+          o[j][1] *= al_a;
+          o[j][2] *= al_b;
+          o[j][3] *= al_b;
+        }
+
+        // O += P V on mma.sync (see the fragment note of the mma.sync kernel)
+        const float* v_frag = Vs + (s * BN + 2 * t4) * LD + g;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          uint32_t ph[4], pl[4];
+          split_tf32(__float_as_uint(sc[4 * j]), ph[0], pl[0]);
+          split_tf32(__float_as_uint(sc[4 * j + 2]), ph[1], pl[1]);
+          split_tf32(__float_as_uint(sc[4 * j + 1]), ph[2], pl[2]);
+          split_tf32(__float_as_uint(sc[4 * j + 3]), ph[3], pl[3]);
+          const float* vj = v_frag + 8 * j * LD;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(__float_as_uint(vj[8 * n]), bh0, bl0);
+            split_tf32(__float_as_uint(vj[LD + 8 * n]), bh1, bl1);
+            mma_3xtf32(o[n], ph, pl, bh0, bh1, bl0, bl1);
+          }
+        }
+      }
+      __syncthreads();                       // every warp is done with stage s and K's lo part
+    }
+
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+    const int row_a = wr0 + g, row_b = row_a + 8;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (row_a < row_end)
+        *reinterpret_cast<float2*>(oh + (size_t)row_a * DH + col) =
+            make_float2(o[j][0] * inv_a, o[j][1] * inv_a);
+      if (row_b < row_end)
+        *reinterpret_cast<float2*>(oh + (size_t)row_b * DH + col) =
+            make_float2(o[j][2] * inv_b, o[j][3] * inv_b);
+    }
+  }
+}
+
+template <int DH, int BN>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H,
+                       int Hkv, int Sq, int Sk, int block_q, int causal, int q_offset,
+                       float scale, cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes(DH, BN);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = flash_attention_f32_kernel<DH, BN>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(H, B, (Sq + block_q - 1) / block_q);
+  kernel<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, Sq, Sk, block_q, causal,
+      q_offset, scale);
+  return cudaGetLastError();
+}
+
 template <int DH>
 cudaError_t launch_dh(bool bf16, const void* q, const void* k, const void* v, void* out, int B,
                       int H, int Hkv, int Sq, int Sk, int block_q, int block_k, int causal,
                       int q_offset, float scale, cudaStream_t s) {
-  if (!bf16)
-    return launch_f32<DH>(q, k, v, out, B, H, Hkv, Sq, Sk, block_q, block_k, causal, q_offset,
-                          scale, s);
+  if (!bf16) {
+    if (f32_kv_tile(DH, block_k) == 64)
+      return launch_f32<DH, 64>(q, k, v, out, B, H, Hkv, Sq, Sk, block_q, causal, q_offset,
+                                scale, s);
+    return launch_f32<DH, 32>(q, k, v, out, B, H, Hkv, Sq, Sk, block_q, causal, q_offset,
+                              scale, s);
+  }
   if (kv_tile(block_k) == 64)
     return launch_bf16<DH, 64>(q, k, v, out, B, H, Hkv, Sq, Sk, block_q, causal, q_offset,
                                scale, s);
@@ -777,13 +977,13 @@ extern "C" {
 // f32 inputs, in bytes.
 long long flash_attention_smem_bytes(int Dh, int block_k, int bf16) {
   return (long long)(bf16 ? bf16_smem_bytes(Dh, kv_tile(block_k))
-                          : f32_smem_bytes(Dh, block_k));
+                          : f32_smem_bytes(Dh, f32_kv_tile(Dh, block_k)));
 }
 
 // Launch on `stream`.  q/out (B, H, Sq, Dh), k/v (B, Hkv, Sk, Dh), contiguous,
-// one type (bf16 when `bf16`, else f32; bf16 tensors 16-byte aligned);
-// Dh in {32, 64, 128}; block_q >= 1 query rows per block, block_k >= 1 (f32:
-// keys per softmax step; bf16: sets the ring's tile, `kv_tile`).  Returns
+// 16-byte aligned, one type (bf16 when `bf16`, else f32); Dh in {32, 64,
+// 128}; block_q >= 1 query rows per block, block_k >= 1 (sets the ring's
+// tile: `kv_tile` for bf16, `f32_kv_tile` for f32).  Returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when the shape,
 // the shared memory or a tensor map is out of range.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out, int B,

@@ -7,9 +7,11 @@ builds the library at first use (:mod:`repro_torch.kernels.build`), snaps
 the blocks as the reference does (``largest_dividing_block``: Sq = 384 with
 block_q 512 runs one 384-row block), checks its inputs, allocates the
 output and launches on PyTorch's current stream.  The dtype picks the
-kernel in the one library: bf16 runs on the tensor cores, f32 on the CUDA
-cores.  It takes CUDA tensors only: the plain version for CPU tensors is
-``ref.attention_ref``, chosen by ``ops.flash_attention``.
+kernel in the one library, both on the tensor cores: bf16 on ``wgmma``,
+f32 as three TF32 products per f32 product (3xTF32: S on ``wgmma``, P·V
+on ``mma.sync``), which keeps f32 accuracy.  It takes CUDA tensors only:
+the plain version for CPU tensors is ``ref.attention_ref``, chosen by
+``ops.flash_attention``.
 """
 
 from __future__ import annotations
@@ -83,9 +85,9 @@ class FlashAttentionKernel:
                              f"divisible by Hkv)")
         if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
             raise ValueError("flash_attention_cuda takes contiguous tensors")
-        if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("flash_attention_cuda takes 16-byte aligned bf16 "
-                             "tensors (TMA)")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention_cuda takes 16-byte aligned "
+                             "tensors (TMA for bf16, cp.async for f32)")
         block_q = largest_dividing_block(Sq, block_q)
         block_k = largest_dividing_block(Sk, block_k)
         smem = smem_bytes(Dh, block_k, q.dtype)

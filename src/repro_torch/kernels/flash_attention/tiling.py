@@ -9,21 +9,22 @@ flash_attention.cu``) takes at this config and dtype, which is what a CUDA
 spec budgets.  The tuner's two knobs map onto that kernel as follows:
 
 * ``block_q`` — query rows per block (grid = B × H × Sq/block_q); the
-  block walks them in passes (128 rows for bf16, 64 for f32), so it sets
+  block walks them in 128-row passes (both dtypes), so it sets
   parallelism and K/V reuse, not shared memory;
-* ``block_k`` — for bf16 inputs (tensor cores) the K/V tile of one ring
-  stage, ``kv_tile(block_k)`` = 64 keys for block_k ≤ 64, else 128 (the
-  widest tile whose two stages of K and V fit beside the Q pass at Dh
-  128), so every bf16 config fits; for f32 inputs (CUDA cores) the keys
-  per online-softmax step, a 64 × block_k f32 score strip in shared
-  memory, which does not fit at block_k 1024 and Dh 128 (329,216 B), so
-  under a CUDA spec the tuner rejects it (``smem_bytes`` > 232,448 B) and
-  every config it can return launches.
+* ``block_k`` — the K/V tile of one ring stage, capped so that the ring
+  fits beside the Q pass: for bf16 ``kv_tile(block_k)`` = 64 keys for
+  block_k ≤ 64, else 128; for f32 (3xTF32 on the tensor cores)
+  ``f32_kv_tile(Dh, block_k)`` = 32 keys for block_k ≤ 32, else 64 (the
+  f32 ring of two stages of K and V and K's lo part fit beside the
+  128-row f32 Q pass at every head dim, at Dh 128 to the byte).  So every
+  config fits (``smem_bytes`` ≤ 232,448 B) and every config a CUDA-spec
+  tuner can return launches.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels.autotune import (
+    SMEM_BYTES_PER_BLOCK,
     KernelCost,
     TilingModel,
     bytes_per_element,
@@ -32,12 +33,12 @@ from repro_torch.kernels.autotune import (
 )
 
 __all__ = ["shape_key", "candidates", "cost", "default", "smem_bytes",
-           "kv_tile"]
+           "kv_tile", "f32_kv_tile"]
 
 _BLOCK_SEEDS = (64, 128, 256, 512, 1024)
 
 # The CUDA kernel's own tiles (csrc/flash_attention.cu).
-_F32_ROWS, _F32_KEYS = 64, 64          # f32: rows per pass, keys per K/V stage
+_F32_ROWS, _F32_STAGES = 128, 2        # f32: rows per pass, K/V ring depth
 _BF16_ROWS, _BF16_STAGES = 128, 2      # bf16: rows per pass, K/V ring depth
 
 
@@ -46,21 +47,30 @@ def kv_tile(block_k: int) -> int:
     return 64 if block_k <= 64 else 128
 
 
+def _f32_bytes(Dh: int, tile: int) -> int:
+    return 1024 + 4 * (_F32_ROWS * Dh + (_F32_STAGES + 1) * tile * Dh
+                       + _F32_STAGES * tile * (Dh + 4))
+
+
+def f32_kv_tile(Dh: int, block_k: int) -> int:
+    """Keys in one ring stage of the f32 kernel (``f32_kv_tile`` there)."""
+    return 64 if block_k > 32 and _f32_bytes(Dh, 64) <= SMEM_BYTES_PER_BLOCK else 32
+
+
 def smem_bytes(Dh: int, block_k: int, dtype) -> int:
     """Shared memory of one block of the CUDA kernel, in bytes.
 
     bf16: 1024 B of alignment slack for the swizzled tiles, the Q pass
     (128 × Dh), two stages of K and V tiles (``kv_tile(block_k)`` × Dh),
-    all bf16, and 128 B of mbarriers.  f32: the q pass and one K/V stage
-    (64 rows × (Dh + 1) f32 each), the score strip (64 × (block_k + 1)
-    f32) and three f32 row statistics.  The kernel computes the same
-    number (``flash_attention_smem_bytes``)."""
+    all bf16, and 128 B of mbarriers.  f32: 1024 B of alignment slack, the
+    Q pass (128 × Dh), two stages of K tiles and K's lo part (three tiles of
+    ``f32_kv_tile(Dh, block_k)`` × Dh, swizzled for ``wgmma``) and two
+    stages of V tiles (rows padded to Dh + 4), all f32.  The kernel
+    computes the same number (``flash_attention_smem_bytes``)."""
     if str(dtype).removeprefix("torch.") == "bfloat16":
         return (1024 + 2 * (_BF16_ROWS * Dh + 2 * _BF16_STAGES * kv_tile(block_k) * Dh)
                 + 128)
-    floats = (_F32_ROWS * (Dh + 1) + _F32_KEYS * (Dh + 1)
-              + _F32_ROWS * (block_k + 1) + 3 * _F32_ROWS)
-    return 4 * floats
+    return _f32_bytes(Dh, f32_kv_tile(Dh, block_k))
 
 
 def shape_key(q_shape, k_shape, *, causal: bool, dtype) -> dict:

@@ -242,10 +242,10 @@ def test_cuda_spec_drops_the_mxu_term():
 def test_every_config_an_h100_tuner_returns_launches(kernel, mod, args, kw):
     """Under the h100 spec the budget is shared memory per block, and the
     winner's working set fits it; flash and SSD candidates that cannot be
-    held are rejected rather than returned.  bf16 flash runs on the tensor
-    cores with its K/V tile capped at 128 keys, so each of its candidates
-    fits (f32 flash keeps a block_k-wide score strip: tests/
-    test_torch_flash_attention.py::test_smem_formula_and_budget)."""
+    held are rejected rather than returned.  Flash runs on the tensor
+    cores with its K/V tile capped (bf16 at 128 keys, f32 at 64), so each
+    of its candidates fits (tests/test_torch_flash_attention.py::
+    test_smem_formula_and_budget)."""
     shape = _keys(PORT[mod], args, kw)
     tuner = at.KernelTuner(device="h100", cache=None, measure=False)
     entry = tuner.explain(kernel, shape)

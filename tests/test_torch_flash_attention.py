@@ -118,24 +118,29 @@ def test_ops_consults_the_tuner_for_missing_blocks():
 
 
 @pytest.mark.parametrize("Dh,block_k,dtype,fits", [
-    (128, 512, "float32", True), (128, 640, "float32", True),
-    (128, 1024, "float32", False), (64, 1024, "float32", False),
-    (64, 640, "float32", True), (32, 64, "float32", True),
+    (128, 512, "float32", True), (128, 32, "float32", True),
+    (128, 1024, "float32", True), (64, 1024, "float32", True),
+    (64, 33, "float32", True), (32, 1, "float32", True),
     (128, 512, "bfloat16", True), (128, 2048, "bfloat16", True),
     (128, 64, "bfloat16", True), (128, 65, "bfloat16", True),
     (64, 1024, "bfloat16", True), (32, 1, "bfloat16", True)])
 def test_smem_formula_and_budget(Dh, block_k, dtype, fits):
     """The shared-memory number the tiling reports (and the CUDA source
-    computes) against Hopper's per-block budget.  f32 (CUDA cores): a
-    64 × block_k f32 score strip, so a wide step does not fit.  bf16
-    (tensor cores): the Q pass and two stages of a K and a V tile of
-    ``kv_tile(block_k)`` keys, bf16, behind 1024 B of alignment slack and
-    beside 128 B of barriers; the tile is capped at 128 keys, so every
-    block_k fits."""
+    computes) against Hopper's per-block budget.  f32 (3xTF32 on the
+    tensor cores): 1024 B of alignment slack, the 128-row Q pass, two
+    stages of a K tile and K's lo part, and two stages of a V tile (rows
+    padded to Dh + 4), of ``f32_kv_tile(Dh, block_k)`` keys (32 for
+    block_k ≤ 32, else 64), all f32.  bf16 (``wgmma``): the Q pass and
+    two stages of a K and a V tile of ``kv_tile(block_k)`` keys, bf16,
+    behind 1024 B of alignment slack and beside 128 B of barriers; the
+    tile is capped at 128 keys.  Both tiles are capped, so every block_k
+    fits."""
     from repro_torch.kernels.autotune import SMEM_BYTES_PER_BLOCK
 
     if dtype == "float32":
-        want = 4 * (64 * (Dh + 1) * 2 + 64 * (block_k + 1) + 3 * 64)
+        tile = 32 if block_k <= 32 else 64
+        assert tiling.f32_kv_tile(Dh, block_k) == tile
+        want = 1024 + 4 * (128 * Dh + 3 * tile * Dh + 2 * tile * (Dh + 4))
     else:
         tile = 64 if block_k <= 64 else 128
         assert tiling.kv_tile(block_k) == tile
@@ -147,3 +152,75 @@ def test_smem_formula_and_budget(Dh, block_k, dtype, fits):
                              dtype=TORCH_DT[dtype])
     assert tiling.cost(shape, {"block_q": 512, "block_k": block_k}).smem_bytes == (
         tiling.smem_bytes(Dh, largest_dividing_block(2048, block_k), dtype))
+
+
+_TF32_MASK = -8192                      # 0xffffe000 as an int32
+
+
+def _tf32(x, rounding):
+    """x's TF32 part: the low 13 mantissa bits cleared, after adding half an
+    ulp when rounding to nearest (``ssd_chunk.cu``'s ``split_tf32``); the
+    tensor cores themselves clear them (round toward zero)."""
+    bits = x.contiguous().view(torch.int32)
+    if rounding:
+        bits = bits + 0x1000
+    return (bits & _TF32_MASK).view(torch.float32)
+
+
+def _tf32_product(a, b, terms, rounding):
+    """a @ b as the kernel forms it: three TF32 products (x = hi + lo, the
+    small terms first, each product exact and summed in f32) or one
+    (both operands rounded to nearest TF32)."""
+    if terms == 1:
+        return _tf32(a, True) @ _tf32(b, True)
+    ah, bh = _tf32(a, rounding), _tf32(b, rounding)
+    al, bl = _tf32(a - ah, rounding), _tf32(b - bh, rounding)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _emulated_f32_kernel(q, k, v, *, q_offset, terms, rounding, tile=64):
+    """The f32 CUDA kernel's arithmetic on the CPU: q pre-scaled, S = Q Kᵀ
+    and O += P V in TF32 products, an online softmax in the log2 domain
+    over ``tile``-key tiles (a masked score is -1e30, as in the
+    reference), O divided by the row sum at the end."""
+    H, Sq, Dh = q.shape[1], q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    rep = H // k.shape[1]
+    k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    qs = q * np.float32(1 / np.sqrt(Dh))
+    m = torch.full(q.shape[:3] + (1,), -1e30)
+    l, o = torch.zeros(q.shape[:3] + (1,)), torch.zeros(q.shape)
+    pos = q_offset + torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, tile):
+        kt, vt = k[:, :, k0:k0 + tile], v[:, :, k0:k0 + tile]
+        s = _tf32_product(qs, kt.transpose(-1, -2), terms, rounding) * 1.4426950408889634
+        s = torch.where(pos >= k0 + torch.arange(kt.shape[2])[None], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _tf32_product(p, vt, terms, rounding)
+        m = m_new
+    return o / l
+
+
+@pytest.mark.parametrize("rounding", [False, True], ids=["truncating", "rounding"])
+def test_three_tf32_terms_hold_f32_attention(rounding):
+    """The f32 kernel keeps f32 accuracy on the tensor cores because each
+    f32 product is three TF32 products: its arithmetic, emulated here with
+    the kernel's split (truncating: hi = x with the low 13 mantissa bits
+    cleared, lo = x - hi as the tensor cores read it) and with
+    ``ssd_chunk``'s rounding split, holds the JAX reference at the f32
+    gate of 1e-4 (``chip_smoke.FLASH_TOL``), at Dh 128 over 45 to 300 keys
+    with GQA and a ragged last tile (about 1e-6), while one TF32 product
+    (each operand rounded to nearest) misses it on the same inputs (about
+    6e-4)."""
+    B, H, Hkv, Sq, Sk, Dh, q_offset = 1, 4, 2, 256, 300, 128, 44
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, H, Hkv, Sq, Sk, Dh, "float32", seed=5)
+    want = np.asarray(jax_ref(jq, jk, jv, causal=True, q_offset=q_offset))
+    three = _emulated_f32_kernel(tq, tk, tv, q_offset=q_offset, terms=3, rounding=rounding)
+    one = _emulated_f32_kernel(tq, tk, tv, q_offset=q_offset, terms=1, rounding=rounding)
+    err3 = float(np.abs(three.numpy() - want).max())
+    err1 = float(np.abs(one.numpy() - want).max())
+    assert err3 <= 1e-4, err3
+    assert err1 > 1e-4, err1
