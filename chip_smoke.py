@@ -13,7 +13,8 @@ Phases (any failure raises and the script exits non-zero):
    and the count of tensor-core instructions (HGMMA, HMMA) in the SASS
    (``cuobjdump -sass``) of all four libraries, none of which may be 0
    (``conv_mm``: HGMMA, its bf16 ``wgmma`` kernel), and of each f32 flash
-   instantiation on its own (HGMMA and HMMA, no spills); hold the shared memory
+   instantiation on its own (HGMMA and HMMA, no spills) and of each 3xTF32
+   paged decode instantiation (HMMA, no spills); hold the shared memory
    the tiling models report against the sources' own formulas, all four
    kernels, ``conv_mm`` at every tile its two tile rules give;
 3. tune — the kernel autotuner on the card: a ``KernelTuner`` for this
@@ -28,7 +29,9 @@ Phases (any failure raises and the script exits non-zero):
 4. kernels — hold each kernel against its plain PyTorch version on the
    card: paged decode at qwen3-4b decode shapes (bf16 at head dims 64 and
    128, rep 1, 4, 5 and 8, every token tile that fits and 1, 2, 4 and 8
-   splits, each at the cache_len edges; f32), the MM convolution on
+   splits, each at the cache_len edges; the 3xTF32 kernel the same way for
+   f32 q and pools, f32 q over bf16 pools and bf16 q over f32 pools at rep
+   1, 4, 5, 8 and 16, and bf16 at rep 16), the MM convolution on
    every convolution shape of full-width ResNet-50 and on edge cases, f32
    and bf16, and at the kernel bench's bf16 shape,
    flash attention at the qwen3-4b prefill shape and edge cases in bf16
@@ -37,8 +40,9 @@ Phases (any failure raises and the script exits non-zero):
    intra-chunk pass at the mamba2-780m shape for every chunk the tuner may
    return, in f32 and with bf16 inputs; time kernel, plain version, a
    library yardstick and the bound with CUDA events (paged decode also at
-   each token tile and split, and in f32; flash also in f32, against the
-   CUDA-core and the 3xTF32 tensor-core bound);
+   each token tile and split, and in f32 and f32 q over bf16 pools at each
+   tile and split beside gather + SDPA in f32; flash also in f32, against
+   the CUDA-core and the 3xTF32 tensor-core bound);
 5. serve — first, while the served weights are drawn on the host and
    before they reach the card (so that which cells run out of memory does
    not depend on them), the campaign
@@ -94,7 +98,9 @@ Phases (any failure raises and the script exits non-zero):
 6. layers — the non-dense layer plans (MoE, SSD, cross-attention): every
    registry architecture at ``reduced()`` in f32 (TF32 off, tuning pinned)
    on the card against the CPU, ``forward`` logits and ``prefill`` + one
-   ``decode_step``; full-width mamba2-780m (48 layers, bf16, seed 0)
+   ``decode_step``, and, for each pure self-attention stack at head_dim
+   64, a chunk and two decode steps over the paged pool (the 3xTF32
+   kernel's launches counted); full-width mamba2-780m (48 layers, bf16, seed 0)
    served by the lockstep ``ServeEngine`` over 8 ragged prompts of
    256-1024 tokens, 64 greedy tokens each, with the SSD chunk tuned at the
    prefill's shape (the SSD kernel timed by the tuner: four launches per
@@ -166,9 +172,10 @@ Phases (any failure raises and the script exits non-zero):
    on the h100 spec: the plan, the one-card line and one step, whose loss
    must match the train phase's first loss; (d) ``serve_bench`` at full
    width: internlm2-1.8b drawn once and served by ``run`` (lockstep
-   against continuous), ``run_chunked`` and ``run_chaos``, paged-decode
-   launches held to decode steps x 24 around each, the reference's
-   ``check_thresholds`` conditions, the kernel against its plain version
+   against continuous, ``SERVE_RUN_PASSES`` passes, each printed; its two
+   host-clock conditions read the median pass), ``run_chunked`` and
+   ``run_chaos``, paged-decode launches held to decode steps x 24 around
+   each, the reference's ``check_thresholds`` conditions, the kernel against its plain version
    on the served pool; (e) ``kernel_bench.run()`` (the tuner's model rows,
    the plain versions timed, and each Hopper kernel's ``card_us`` row at
    the bench's shapes against its plain version and its bound) and
@@ -206,7 +213,10 @@ Phases (any failure raises and the script exits non-zero):
    ``bf16_forward_*``, and the bench shape's bf16 ``bf16_bench_*``; the
    flash entry with the f32 prefill's ``f32_ms``, ``f32_library_ms`` and
    ``f32_bound_ms`` and the train
-   phase's ``train_*`` numbers, paged decode with the layers phase's
+   phase's ``train_*`` numbers, paged decode with the 3xTF32 kernel's
+   ``tf32_*`` errors, its f32 (``f32_*``) and f32-q-over-bf16
+   (``f32q_bf16pool_*``) serving-shape numbers, the reference and layers
+   phases' launches, the layers phase's
    ``moe_*``, the admit phase's ``admit_*``, the campaign phase's
    ``campaign_*`` and the benches phase's ``serve_bench_*`` numbers, SSD
    with its ``serve_launches``, each with ``kernel_bench_launches`` and
@@ -324,28 +334,41 @@ def check_smem_formulas(flash_lib, ssd_lib, conv_lib, decode_lib) -> None:
         for N, P in ((128, 64), (32, 32), (16, 8), (100, 50)):
             if ssd_lib.ssd_chunk_smem_bytes(l, N, P) != ssm_tiling.smem_bytes(l, N, P):
                 raise AssertionError(f"ssd smem formula differs at l={l} N={N} P={P}")
-    types = {"bfloat16": 1, "float32": 0}
-    for q_dt, q_flag in types.items():
-        for kv_dt, kv_flag in types.items():
-            for Dh in (64, 128):
-                for rep in (1, 2, 4, 5, 8, 16):
-                    for bkv in (1, 8, 12, 16, 32, 64, 100, 128, 256, 512):
-                        if (decode_lib.paged_decode_smem_bytes(Dh, rep, bkv, q_flag, kv_flag)
-                                != pd_tiling.smem_bytes(Dh, rep, bkv, q_dt, kv_dt)):
-                            raise AssertionError(
-                                f"paged_decode smem formula differs at Dh={Dh} rep={rep} "
-                                f"block_kv={bkv} q {q_dt} kv {kv_dt}")
+    for kv_dt, kv_flag in (("bfloat16", 1), ("float32", 0)):
+        for Dh in (64, 128):
+            for bkv in (1, 8, 12, 16, 32, 48, 64, 100, 128, 256, 512):
+                if (decode_lib.paged_decode_smem_bytes(Dh, bkv, kv_flag)
+                        != pd_tiling.smem_bytes(Dh, bkv, kv_dt)):
+                    raise AssertionError(f"paged_decode smem formula differs at Dh={Dh} "
+                                         f"block_kv={bkv} pools {kv_dt}")
     print("build shared-memory formulas of flash_attention, conv_mm, ssd_chunk and "
           "paged_decode: the CUDA sources and the tiling models agree")
 
 
 def kernel_name(mangled: str) -> str:
-    """``name<template arguments>`` of a mangled kernel symbol."""
+    """``name<template arguments>`` of a mangled kernel symbol: integer and
+    bool literals as numbers, ``float`` and named types by name (a repeated
+    named type, mangled as a substitution, as the last one named)."""
     for m in re.finditer(r"\d+", mangled):
         name = mangled[m.end():m.end() + int(m.group())]
         if name.endswith("_kernel"):
-            rest = mangled[m.end() + len(name):]
-            args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) if rest[:1] == "I" else []
+            rest, args, named, i = mangled[m.end() + len(name):], [], [], 1
+            while rest[:1] == "I" and i < len(rest) and rest[i] != "E":
+                if rest[i] == "L":                       # a literal: L<type><value>E
+                    end = rest.index("E", i)
+                    args.append(rest[i + 2:end])
+                    i = end + 1
+                elif rest[i].isdigit():                  # a named type: <length><name>
+                    n = re.match(r"\d+", rest[i:]).group()
+                    args.append(rest[i + len(n):i + len(n) + int(n)])
+                    named.append(args[-1])
+                    i += len(n) + int(n)
+                elif rest[i] == "S":                     # a repeated named type: S<id>_
+                    args.append(named[-1] if named else "?")
+                    i = rest.index("_", i) + 1
+                else:                                    # a builtin type
+                    args.append({"f": "float", "i": "int", "b": "bool"}.get(rest[i], rest[i]))
+                    i += 1
             return f"{name}<{', '.join(args)}>" if args else name
     return mangled
 
@@ -398,30 +421,33 @@ def sass_mma_count(lib_path: str, by_function: bool = False) -> dict | None:
 
 FLASH_F32_INSTANTIATIONS = {f"flash_attention_f32_kernel<{dh}, {bn}>"
                             for dh in (32, 64, 128) for bn in (32, 64)}
+# the 3xTF32 paged decode kernel: (q, pools) x head dim x every tile whose ring fits
+DECODE_TF32_INSTANTIATIONS = {
+    f"paged_decode_tf32_kernel<{qt}, {kt}, {dh}, {tk}>"
+    for qt in ("float", "__nv_bfloat16") for kt, elt in (("float", 4), ("__nv_bfloat16", 2))
+    for dh in (64, 128) for tk in (16, 32, 64, 128, 256) if 3 * 2 * tk * dh * elt <= 232448}
 
 
-def check_flash_f32_build(lib_path: str, log: str) -> None:
-    """Every f32 flash instantiation (head dim × K/V tile) has both kinds
-    of tensor-core instruction in its own SASS (HGMMA: S = Q Kᵀ on
-    ``wgmma``; HMMA: O += P V on ``mma.sync``; both in 3xTF32; the
-    library-wide count cannot show it, the bf16 kernel's HGMMA being in
-    the same library) and spills nothing."""
+def check_build(label: str, lib_path: str, log: str, expected: set, ops: tuple) -> None:
+    """Every instantiation in ``expected`` has each tensor-core instruction
+    of ``ops`` in its own SASS (the library-wide count cannot show it where
+    other kernels of the library have them) and spills nothing."""
     sass = sass_mma_count(lib_path, by_function=True)
     if sass is None:
-        raise AssertionError("cuobjdump is needed to show the f32 flash kernel's "
-                             "tensor-core instructions")
-    f32 = {k: v for k, v in sass.items() if k.startswith("flash_attention_f32_kernel")}
-    spills = {k: s for k, _, s in ptxas_kernels(log) if k.startswith("flash_attention_f32_kernel")}
-    print("build flash_attention f32 instantiations (SASS, ptxas): " + "; ".join(
-        f"{k} HMMA {f32[k]['HMMA']} HGMMA {f32[k]['HGMMA']}, {spills.get(k)} bytes spilled"
-        for k in sorted(f32)))
-    if set(f32) != FLASH_F32_INSTANTIATIONS or set(spills) != FLASH_F32_INSTANTIATIONS:
-        raise AssertionError(f"f32 flash instantiations {sorted(f32)} / {sorted(spills)}, "
-                             f"expected {sorted(FLASH_F32_INSTANTIATIONS)}")
-    bad = [k for k in f32
-           if not (f32[k]["HGMMA"] > 0 and f32[k]["HMMA"] > 0) or spills[k] != 0]
+        raise AssertionError(f"cuobjdump is needed to show the {label} kernel's "
+                             f"tensor-core instructions")
+    prefix = next(iter(expected)).split("<")[0]
+    got = {k: v for k, v in sass.items() if k.startswith(prefix)}
+    spills = {k: s for k, _, s in ptxas_kernels(log) if k.startswith(prefix)}
+    print(f"build {label} instantiations (SASS, ptxas): " + "; ".join(
+        f"{k} " + " ".join(f"{op} {got[k][op]}" for op in ops) + f", {spills.get(k)} bytes spilled"
+        for k in sorted(got)))
+    if set(got) != expected or set(spills) != expected:
+        raise AssertionError(f"{label} instantiations {sorted(got)} / {sorted(spills)}, "
+                             f"expected {sorted(expected)}")
+    bad = [k for k in got if not all(got[k][op] > 0 for op in ops) or spills[k] != 0]
     if bad:
-        raise AssertionError(f"f32 flash instantiations without HGMMA and HMMA, or with "
+        raise AssertionError(f"{label} instantiations without {' and '.join(ops)}, or with "
                              f"spills: {bad}")
 
 
@@ -456,16 +482,16 @@ def bound(q, kp, cl) -> tuple[float, str]:
 
 
 def library_decode(q, kp, vp, bt, cl):
-    """Yardstick only (never used by the port): gather the logical view,
-    then one ``scaled_dot_product_attention`` call with the rep query
-    heads of each KV head as its query rows."""
+    """Yardstick only (never used by the port): gather the logical view (in
+    q's type), then one ``scaled_dot_product_attention`` call with the rep
+    query heads of each KV head as its query rows."""
     import torch
     import torch.nn.functional as F
 
     B, H, Dh = q.shape
     Hkv = kp.shape[2]
-    k = kp[bt.long()].reshape(B, -1, Hkv, Dh).transpose(1, 2)
-    v = vp[bt.long()].reshape(B, -1, Hkv, Dh).transpose(1, 2)
+    k = kp[bt.long()].reshape(B, -1, Hkv, Dh).transpose(1, 2).to(q.dtype)
+    v = vp[bt.long()].reshape(B, -1, Hkv, Dh).transpose(1, 2).to(q.dtype)
     mask = torch.arange(k.shape[2], device=q.device)[None] <= cl[:, None]
     o = F.scaled_dot_product_attention(q.view(B, Hkv, H // Hkv, Dh), k, v,
                                        attn_mask=mask[:, None, None, :])
@@ -490,6 +516,55 @@ def decode_check(label, args, want, **kw) -> float:
     return err
 
 
+def decode_tiles(Dh, H, Hkv, kv_dtype) -> list[int]:
+    """The token tiles the tuner may return at the serving table (its
+    candidates whose ring fits, in the pools' type)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.paged_decode import tiling as pd_tiling
+
+    shape = pd_tiling.shape_key(DECODE["B"], H, Hkv, Dh, DECODE["NB"], DECODE["bs"], kv_dtype)
+    return sorted({c["block_kv"] for c in pd_tiling.candidates(shape)
+                   if autotune.smem_ok(pd_tiling.cost(shape, c))})
+
+
+# (q, pools) of the 3xTF32 kernel: every pair but bf16 q and pools at rep <= 8
+TF32_PAIRS = (("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32"),
+              ("bfloat16", "bfloat16"))
+# (H, Hkv): rep 1, 4, 5, 8 and 16
+DECODE_HEADS = ((32, 32), (32, 8), (40, 8), (32, 4), (32, 2))
+
+
+def decode_timing(label, args, flush) -> dict:
+    """The kernel at the serving shape at each token tile and split, beside
+    its plain version, gather + SDPA in q's type (the pools cast to it) and
+    the bound; the best config's numbers."""
+    from repro_torch.kernels.paged_decode.kernel import paged_decode_cuda
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+
+    q, kp = args[0], args[1]
+    want = paged_decode_ref(*args)
+    lib_err = float((library_decode(*args).float() - want.float()).abs().max())
+    times = {(bkv, ns): time_ms(lambda: paged_decode_cuda(*args, block_kv=bkv, n_splits=ns),
+                                flush)
+             for bkv in decode_tiles(q.shape[2], q.shape[1], kp.shape[2], kp.dtype)
+             for ns in (1, 2, 4, 8)}
+    best = min(times, key=times.get)
+    plain_ms = time_ms(lambda: paged_decode_ref(*args), flush)
+    library_ms = time_ms(lambda: library_decode(*args), flush)
+    bound_ms, bound_by = bound(q, kp, args[4])
+    live = int((args[4].long() + 1).sum())
+    for bkv in sorted({c[0] for c in times}):
+        print(f"timing paged_decode {label} B=8 H=32 Hkv=8 Dh=128 bs=256 NB=8 "
+              f"live_tokens={live}, block_kv={bkv}, by n_splits: " + ", ".join(
+                  f"{ns}: {times[bkv, ns]:.4f} ms" for ns in (1, 2, 4, 8)))
+    print(f"timing paged_decode {label}: best block_kv {best[0]} n_splits {best[1]} "
+          f"{times[best]:.4f} ms; plain {plain_ms:.4f} ms, gather+sdpa {q.dtype} "
+          f"{library_ms:.4f} ms (max_abs_err vs plain {lib_err:.3e}), bound {bound_ms:.4f} ms "
+          f"({bound_by}) -> {bound_ms / times[best]:.1%} of bound")
+    return {"ms": times[best], "block_kv": best[0], "n_splits": best[1], "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def kernel_phase(flush) -> dict:
     import torch
 
@@ -500,13 +575,11 @@ def kernel_phase(flush) -> dict:
 
     bs, NB = DECODE["bs"], DECODE["NB"]
     edges = [0, bs - 1, bs, 2 * bs - 1, 3 * bs, 5 * bs + 17, NB * bs - 1, 700]
-    # bf16 q and pools run the tensor-core kernel: every token tile the tuner
-    # may return (the candidates whose ring fits), every split, rep 1, 4, 5, 8
+    # bf16 q and pools at rep <= 8 run the tensor-core kernel: every token
+    # tile the tuner may return (the candidates whose ring fits), every split
     for Dh in (128, 64):
-        for H, Hkv in ((32, 32), (32, 8), (40, 8), (32, 4)):      # rep 1, 4, 5, 8
-            shape = pd_tiling.shape_key(DECODE["B"], H, Hkv, Dh, NB, bs, "bfloat16")
-            tiles = sorted({c["block_kv"] for c in pd_tiling.candidates(shape)
-                            if autotune.smem_ok(pd_tiling.cost(shape, c))})
+        for H, Hkv in DECODE_HEADS[:4]:
+            tiles = decode_tiles(Dh, H, Hkv, "bfloat16")
             args = decode_case(torch.bfloat16, Dh, edges, H=H, Hkv=Hkv)
             want = paged_decode_ref(*args)
             err = max(decode_check(f"Dh={Dh} H={H} Hkv={Hkv} bf16", args, want,
@@ -515,14 +588,23 @@ def kernel_phase(flush) -> dict:
             print(f"kernel paged_decode Dh={Dh} bfloat16 H={H} Hkv={Hkv} (rep {H // Hkv}) "
                   f"at block_kv {tiles} x n_splits [1, 2, 4, 8]: max_abs_err={err:.3e} "
                   f"(tol {TOL['bfloat16']})")
-    # f32 q and pools: the CUDA-core kernel
-    for Dh in (128, 64):
-        args = decode_case(torch.float32, Dh, edges)
-        want = paged_decode_ref(*args)
-        for ns in (1, 2, 4):
-            err = decode_check(f"Dh={Dh} f32", args, want, n_splits=ns)
-            print(f"kernel paged_decode Dh={Dh} float32 n_splits={ns}: "
-                  f"max_abs_err={err:.3e} (tol {TOL['float32']})")
+    # every other pair, and bf16 at rep 16: the 3xTF32 kernel, at every tile
+    # whose ring fits in the pools' type and every split
+    tf32_err = {}
+    for q_dt, kv_dt in TF32_PAIRS:
+        for Dh in (128, 64):
+            for H, Hkv in DECODE_HEADS[4:] if q_dt == kv_dt == "bfloat16" else DECODE_HEADS:
+                tiles = decode_tiles(Dh, H, Hkv, kv_dt)
+                q, *rest = decode_case(getattr(torch, kv_dt), Dh, edges, H=H, Hkv=Hkv)
+                args = (q.to(getattr(torch, q_dt)), *rest)
+                want = paged_decode_ref(*args)
+                err = max(decode_check(f"Dh={Dh} H={H} Hkv={Hkv} q {q_dt} pools {kv_dt}",
+                                       args, want, block_kv=bkv, n_splits=ns)
+                          for bkv in tiles for ns in (1, 2, 4, 8))
+                tf32_err[q_dt] = max(tf32_err.get(q_dt, 0.0), err)
+                print(f"kernel paged_decode (3xTF32) Dh={Dh} q {q_dt} pools {kv_dt} H={H} "
+                      f"Hkv={Hkv} (rep {H // Hkv}) at block_kv {tiles} x n_splits "
+                      f"[1, 2, 4, 8]: max_abs_err={err:.3e} (tol {TOL[q_dt]})")
 
     # timing at the serving shape: bf16, ragged fills drawn like the served
     # requests (prompt 64..1536 + 16 generated), at the config the tune phase
@@ -546,39 +628,25 @@ def kernel_phase(flush) -> dict:
           f"{ms_again:.4f} ms, plain {plain_ms:.4f} ms, gather+sdpa {library_ms:.4f} ms "
           f"(max_abs_err vs plain {lib_err:.3e}), bound {bound_ms:.4f} ms "
           f"({bound_by}) -> {bound_ms / ms:.1%} of bound")
-    tiles = sorted({c["block_kv"] for c in pd_tiling.candidates(shape)
-                    if autotune.smem_ok(pd_tiling.cost(shape, c))})
-    for bkv in tiles:
+    for bkv in decode_tiles(DECODE["Dh"], DECODE["H"], DECODE["Hkv"], "bfloat16"):
         splits = {ns: time_ms(lambda: paged_decode_cuda(*args, block_kv=bkv, n_splits=ns),
                               flush) for ns in (1, 2, 4, 8)}
         print(f"timing paged_decode same inputs, block_kv={bkv}, by n_splits: " + ", ".join(
             f"{ns}: {t:.4f} ms" for ns, t in splits.items()))
 
-    # f32 q and pools (the CUDA-core kernel) at the same shape and fills, at
-    # each split (no tuner: its launches would count in the serve window),
-    # beside gather + SDPA in f32 and the bytes bound of f32 pools
-    args32 = decode_case(torch.float32, DECODE["Dh"], fills.tolist(), seed=1)
-    want32 = paged_decode_ref(*args32)
-    err32 = max(decode_check("serving shape f32", args32, want32, n_splits=ns)
-                for ns in (1, 2, 4, 8))
-    lib_err32 = float((library_decode(*args32) - want32).abs().max())
-    splits32 = {ns: time_ms(lambda: paged_decode_cuda(*args32, n_splits=ns), flush)
-                for ns in (1, 2, 4, 8)}
-    best32 = min(splits32, key=splits32.get)
-    plain32 = time_ms(lambda: paged_decode_ref(*args32), flush)
-    library32 = time_ms(lambda: library_decode(*args32), flush)
-    bound32, bound32_by = bound(args32[0], args32[1], args32[4])
-    print(f"timing paged_decode B=8 H=32 Hkv=8 Dh=128 bs=256 NB=8 f32 (CUDA-core kernel) "
-          f"live_tokens={live}, by n_splits: " + ", ".join(
-              f"{ns}: {t:.4f} ms" for ns, t in splits32.items())
-          + f"; plain {plain32:.4f} ms, gather+sdpa f32 {library32:.4f} ms (max_abs_err vs "
-          f"plain {lib_err32:.3e}; the kernel's {err32:.3e}), bound {bound32:.4f} ms "
-          f"({bound32_by}) -> {bound32 / splits32[best32]:.1%} of bound at n_splits {best32}")
+    # the 3xTF32 kernel at the same shape and fills (no tuner: its launches
+    # would count in the serve window): f32 q and pools, and f32 q over a
+    # bf16 pool (the f32 models' decode)
+    q, *rest = decode_case(torch.float32, DECODE["Dh"], fills.tolist(), seed=1)
+    f32 = decode_timing("f32", (q, *rest), flush)
+    q, *rest = decode_case(torch.bfloat16, DECODE["Dh"], fills.tolist(), seed=1)
+    mixed = decode_timing("f32 q over bf16 pools", (q.float(), *rest), flush)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "f32_ms": splits32[best32], "f32_n_splits": best32, "f32_max_abs_err": err32,
-            "f32_plain_ms": plain32, "f32_library_ms": library32,
-            "f32_bound_ms": bound32, "f32_bound_by": bound32_by}
+            "tf32_max_abs_err": tf32_err["float32"],
+            "tf32_bf16_max_abs_err": tf32_err["bfloat16"],
+            **{f"f32_{k}": v for k, v in f32.items()},
+            **{f"f32q_bf16pool_{k}": v for k, v in mixed.items()}}
 
 
 def host_draw(cfg):
@@ -753,7 +821,7 @@ def decode_breakdown(cfg, params, scfg, prompts, n_steps: int = 8) -> None:
         t = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t / 1e3 / n_steps
     dev_ms = sum(by_kernel.values())
-    # the tensor-core kernel (bf16) or the CUDA-core one, and the split merge
+    # either tensor-core kernel (bf16, or 3xTF32), and the split merge
     paged = sum(t for k, t in by_kernel.items() if re.search(r"paged_decode_\w*kernel", k))
     merge = sum(t for k, t in by_kernel.items() if "combine_splits_kernel" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
@@ -1439,18 +1507,41 @@ def campaign_phase() -> dict:
     return {"forest": forest, "path": path, "estimates": estimates}
 
 
-def reference_phase() -> None:
-    """Reduced qwen3-4b in f32 (head_dim 64, the smallest the kernel takes;
-    4 query heads over 2 KV heads): a chunked-prefill chunk and decode
-    steps over the paged pool on the card (CUDA kernel) and on the CPU
-    (the plain path) give the same logits.  Tolerance: atol 2e-3 (K/V sit
-    in a bf16 pool, where f32 noise can flip one rounding)."""
-    import dataclasses
-
+def paged_steps(cfg, dev: str, steps, n_blocks: int, block_size: int) -> tuple[list, int]:
+    """``decode_step`` over a paged pool on ``dev`` (the f32 parameters of
+    seed 0, the pool in its default bf16) for each (tokens, cache_len,
+    block_table) of ``steps`` → (each step's logits on the CPU, the paged
+    decode kernel's launches meanwhile)."""
     import torch
 
-    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.paged_decode.kernel import paged_decode_cuda
     from repro_torch.models import transformer as T
+
+    params = T.init_params(cfg, 0, device=dev, dtype=torch.float32)
+    pool = T.init_paged_cache(cfg, n_blocks, block_size, device=dev)
+    paged_decode_cuda.launches = 0
+    out = []
+    for tokens, cache_len, table in steps:
+        lg, pool = T.decode_step(params, pool, {
+            "tokens": torch.tensor(tokens, dtype=torch.int32, device=dev),
+            "cache_len": torch.tensor(cache_len, dtype=torch.int32, device=dev),
+            "block_table": torch.tensor(table, dtype=torch.int32, device=dev),
+        }, cfg)
+        out.append(lg.float().cpu())
+    return out, paged_decode_cuda.launches
+
+
+def reference_phase() -> int:
+    """Reduced qwen3-4b in f32 (head_dim 64, the smallest the kernel takes;
+    4 query heads over 2 KV heads): a chunked-prefill chunk and decode
+    steps over the paged pool on the card (the 3xTF32 kernel: f32 q over
+    the bf16 pool) and on the CPU (the plain path) give the same logits.
+    Tolerance: atol 2e-3 (K/V sit in a bf16 pool, where f32 noise can flip
+    one rounding).  Returns the kernel's launches: one a decode step and
+    layer."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
 
     cfg = dataclasses.replace(get_config("qwen3-4b", reduced=True),
                               head_dim=64, n_kv_heads=2)
@@ -1461,25 +1552,18 @@ def reference_phase() -> None:
         steps.append((rng.integers(2, 512, (3, 1)), cl.tolist(),
                       [[1, 2, 3], [0, 0, 0], [4, 5, 6]]))
         cl = cl + [1, 0, 1]
-    logits = {}
-    for dev in ("cpu", "cuda"):
-        params = T.init_params(cfg, 0, device=dev, dtype=torch.float32)
-        pool = T.init_paged_cache(cfg, 9, 8, device=dev)
-        out = []
-        for tokens, cache_len, table in steps:
-            lg, pool = T.decode_step(params, pool, {
-                "tokens": torch.tensor(tokens, dtype=torch.int32, device=dev),
-                "cache_len": torch.tensor(cache_len, dtype=torch.int32, device=dev),
-                "block_table": torch.tensor(table, dtype=torch.int32, device=dev),
-            }, cfg)
-            out.append(lg.float().cpu())
-        logits[dev] = out
-    err = max(float((a - b).abs().max())
-              for a, b in zip(logits["cpu"], logits["cuda"]))
+    cpu, _ = paged_steps(cfg, "cpu", steps, 9, 8)
+    card, launches = paged_steps(cfg, "cuda", steps, 9, 8)
+    err = max(float((a - b).abs().max()) for a, b in zip(cpu, card))
+    want = 4 * cfg.n_layers
     print(f"reference reduced qwen3-4b f32 paged decode, card vs CPU logits: "
-          f"max_abs_err={err:.3e} (tol 2e-3)")
+          f"max_abs_err={err:.3e} (tol 2e-3); paged_decode launches {launches} "
+          f"(4 decode steps x {cfg.n_layers} layers = {want})")
     if not err <= 2e-3:
         raise AssertionError(f"card disagrees with the CPU path: {err}")
+    if launches != want:
+        raise AssertionError(f"reference: paged_decode launches {launches} != {want}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1632,6 +1716,57 @@ def layers_card_vs_cpu() -> None:
           f"{max(worst, key=worst.get)} at {max(worst.values()):.3e}")
     if bad:
         raise AssertionError(f"card disagrees with the CPU: {bad}")
+
+
+def layers_paged_card_vs_cpu() -> int:
+    """(1b) Every registry architecture with a pure self-attention stack and
+    no prefix or encoder, at ``reduced()`` in f32 with head_dim 64 (the
+    smallest the paged decode kernel takes): a chunked-prefill chunk of 12
+    tokens and two decode steps over the paged pool (bf16), on the card
+    (the 3xTF32 kernel: f32 q over the bf16 pool) against the CPU, relative
+    to the largest logit within ``LAYERS_CPU_TOL``.  Returns the kernel's
+    launches, one a decode step and layer of causal attention."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.models import transformer as T
+
+    rng = np.random.default_rng(7)
+    total, worst = 0, {}
+    with pinned_tuning():
+        for arch in ARCH_IDS:
+            cfg = dataclasses.replace(get_config(arch, reduced=True), head_dim=64)
+            if cfg.n_prefix or cfg.n_encoder_layers:
+                continue
+            try:
+                T.paged_cache_shapes(cfg, 1, 8)
+            except ValueError:             # an SSD or cross-attention mixer
+                continue
+            table = [[1, 2, 3], [4, 5, 6]]
+            steps = [(rng.integers(0, cfg.vocab, (2, 12)), [0, 0], table),
+                     (rng.integers(0, cfg.vocab, (2, 1)), [12, 12], table),
+                     (rng.integers(0, cfg.vocab, (2, 1)), [13, 13], table)]
+            cpu, _ = paged_steps(cfg, "cpu", steps, 7, 8)
+            card, launches = paged_steps(cfg, "cuda", steps, 7, 8)
+            worst[arch] = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                              for a, b in zip(card, cpu))
+            # chunked attention (llama4) reads the gathered view, as the
+            # reference's does: no kernel launch
+            want = 0 if cfg.attention == "chunked" else 2 * cfg.n_layers
+            print(f"layers {arch} reduced f32 head_dim 64 over the paged pool, card vs CPU: "
+                  f"{worst[arch]:.3e} (relative to the largest logit, tol {LAYERS_CPU_TOL}); "
+                  f"paged_decode launches {launches} (expected {want}: 2 decode steps x "
+                  f"{cfg.n_layers} layers, {cfg.attention} attention)")
+            if launches != want:
+                raise AssertionError(f"{arch}: paged_decode launches {launches} != {want}")
+            total += launches
+    bad = {a: e for a, e in worst.items() if not e <= LAYERS_CPU_TOL}
+    print(f"layers paged card vs CPU, {len(worst)} architectures: worst "
+          f"{max(worst, key=worst.get)} at {max(worst.values()):.3e}; paged_decode launches "
+          f"{total}")
+    if bad:
+        raise AssertionError(f"card disagrees with the CPU over the paged pool: {bad}")
+    return total
 
 
 def layers_mamba() -> dict:
@@ -1942,12 +2077,13 @@ def layers_phase() -> dict:
     drawing = host_draw(dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
                                             n_layers=MOE_LAYERS))
     layers_card_vs_cpu()
+    paged_launches = layers_paged_card_vs_cpu()
     mamba = layers_mamba()
     moe = layers_moe(drawing)
     layers_whisper()
     torch.cuda.empty_cache()
     print(f"layers phase done in {time.perf_counter() - t0:.1f} s")
-    return {**mamba, **moe}
+    return {**mamba, **moe, "paged_launches": paged_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3500,6 +3636,9 @@ PLAN_DEVICES = (1, 2, 4, 8)
 # f32 loss up to a rounding
 LAUNCH_LOSS_RTOL = 1e-6
 SERVE_SPEEDUP_MIN = 1.0                  # the reference's check_thresholds gates
+# passes of serve_bench.run on the same weights: its two host-clock gates
+# (continuous req/s and goodput against lockstep's) read the median pass
+SERVE_RUN_PASSES = 3
 CHUNKED_TTFT_STEPS_RATIO_MAX = 1.10
 CHAOS_GOODPUT_RATIO_MIN = 0.25
 ENGINE_PARITY_TOL = 1e-9
@@ -3661,10 +3800,12 @@ def benches_serve(drawing) -> dict:
         return launch(*args, **kw)
 
     results, launches, secs = {}, {}, {}
+    runs = [f"run {i + 1}" for i in range(SERVE_RUN_PASSES)]
     ops.paged_decode_cuda = keep_last
     try:
-        for name, fn in (("run", serve_bench.run), ("chunked", serve_bench.run_chunked),
-                         ("chaos", serve_bench.run_chaos)):
+        for name, fn in ([(r, serve_bench.run) for r in runs]
+                         + [("chunked", serve_bench.run_chunked),
+                            ("chaos", serve_bench.run_chaos)]):
             torch.cuda.synchronize()
             paged_decode_cuda.launches = 0
             window = TunerWindow()
@@ -3685,7 +3826,27 @@ def benches_serve(drawing) -> dict:
     finally:
         ops.paged_decode_cuda = launch
 
-    srv, chk, chaos = results["run"], results["chunked"], results["chaos"]
+    for r in runs:
+        s = results[r]
+        print(f"benches serve_bench {r}: lockstep {s['lockstep_rps']:.3f} req/s, continuous "
+              f"{s['continuous_rps']:.3f} req/s ({s['speedup']:.2f}x), goodput "
+              f"{s['goodput_lockstep']:.3f} / {s['goodput_continuous']:.3f} req/s")
+    # each host-clock condition reads its median pass: the record gated
+    # below and handed on to check_thresholds is the pass of median speedup,
+    # its goodput pair that of the pass of median goodput gain
+    def median_pass(key):
+        return sorted((results[r] for r in runs), key=key)[SERVE_RUN_PASSES // 2]
+
+    by_goodput = median_pass(lambda s: s["goodput_continuous"] - s["goodput_lockstep"])
+    srv = dict(median_pass(lambda s: s["speedup"]),
+               goodput_lockstep=by_goodput["goodput_lockstep"],
+               goodput_continuous=by_goodput["goodput_continuous"])
+    results["run"] = srv
+    print(f"benches serve_bench run over {SERVE_RUN_PASSES} passes: median speedup "
+          f"{srv['speedup']:.2f}x, median goodput continuous - lockstep "
+          f"{srv['goodput_continuous'] - srv['goodput_lockstep']:.3f} req/s; passes "
+          f"2-{SERVE_RUN_PASSES} added {sum(secs[r] for r in runs[1:]):.1f} s")
+    chk, chaos = results["chunked"], results["chaos"]
     # At max_len 64 and 128 the card tuner picks a block of the whole
     # window: ``run``'s engine fits it to the pool (serve.kv_cache.
     # fit_block_size; else 2 blocks for 4 slots), and the chunked row keeps
@@ -3693,8 +3854,9 @@ def benches_serve(drawing) -> dict:
     # prompt at 16 tokens, not the block (else a stall of 128).
     gates = {
         "a pool block for every slot": srv["usable_blocks"] >= serve_bench.N_SLOTS,
-        "continuous req/s >= lockstep": srv["speedup"] >= SERVE_SPEEDUP_MIN,
-        "goodput continuous >= lockstep": srv["goodput_continuous"] >= srv["goodput_lockstep"],
+        "continuous req/s >= lockstep (median pass)": srv["speedup"] >= SERVE_SPEEDUP_MIN,
+        "goodput continuous >= lockstep (median pass)": (srv["goodput_continuous"]
+                                                         >= srv["goodput_lockstep"]),
         "finite percentiles": all(np.isfinite(srv[k]) and srv[k] > 0 for k in
                                   ("ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
                                    "tpot_p99_ms")),
@@ -4265,21 +4427,32 @@ def main() -> int:
             raise AssertionError(f"the {name} library has no tensor-core instruction")
         if name == "conv_mm" and not mma["HGMMA"] > 0:
             raise AssertionError("the conv_mm library has no HGMMA instruction")
-    check_flash_f32_build(libs[2]._name, Path(libs[2]._name).with_suffix(".log").read_text())
+    # each f32 flash instantiation: S on wgmma (HGMMA), P·V on mma.sync
+    # (HMMA); each 3xTF32 paged decode instantiation: mma.sync (HMMA)
+    check_build("flash_attention f32", libs[2]._name,
+                Path(libs[2]._name).with_suffix(".log").read_text(),
+                FLASH_F32_INSTANTIATIONS, ("HGMMA", "HMMA"))
+    check_build("paged_decode 3xTF32", libs[0]._name,
+                Path(libs[0]._name).with_suffix(".log").read_text(),
+                DECODE_TF32_INSTANTIATIONS, ("HMMA",))
     check_smem_formulas(libs[2], libs[3], libs[1], libs[0])
 
     t0 = time.perf_counter()
     tuned = tune_phase()
     print(f"tune phase done in {time.perf_counter() - t0:.1f} s")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    t0 = time.perf_counter()
     timing = kernel_phase(flush)
+    t1 = time.perf_counter()
     conv_timing = conv_kernel_phase(flush)
     flash_timing = flash_kernel_phase(flush, tuned)
     ssd_timing = ssd_kernel_phase(flush, tuned)
+    print(f"kernels phase done in {time.perf_counter() - t0:.1f} s (paged decode "
+          f"{t1 - t0:.1f} s)")
     del flush
     torch.cuda.empty_cache()
     served = serve_phase()
-    reference_phase()
+    reference_launches = reference_phase()
     layered = layers_phase()
     trained = train_phase()
     est = served["admit"]["train_estimate"]
@@ -4323,6 +4496,8 @@ def main() -> int:
         "campaign_max_abs_err": served["campaign"]["max_abs_err"],
         "serve_bench_launches": benches["serve_bench"]["launches"],
         "serve_bench_max_abs_err": benches["serve_bench"]["max_abs_err"],
+        "reference_launches": reference_launches,
+        "layers_launches": layered["paged_launches"],
         **kernel_bench_fields("paged_decode"),
     }, {
         "name": "conv_mm",

@@ -9,7 +9,7 @@ instruction counts; holds bf16 paged decode against its plain version at
 the cache_len edges of ``chip_smoke.py`` for Dh 128 and 64, rep 4, 1, 5
 and 8, every token tile 16-256 (a tile whose ring does not fit prints
 "-") and 1, 2, 4 and 8 splits; times it at the kernel cell at each tile
-and split (L2 flushed), beside gather + SDPA and the CUDA-core kernel
+and split (L2 flushed), beside gather + SDPA and the 3xTF32 kernel
 (f32 q); holds the SSD pass against its plain version at mamba2-780m's
 shape for chunks 16-128, f32 and bf16 inputs, and times it at chunks 32,
 64 and 128.  Prints FAILURES [] when every check holds.  About 40 s of
@@ -33,7 +33,9 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from repro_torch.kernels.autotune import SMEM_BYTES_PER_BLOCK
     from repro_torch.kernels.paged_decode import kernel as pdk
+    from repro_torch.kernels.paged_decode import tiling as pd_tiling
     from repro_torch.kernels.paged_decode.ref import paged_decode_ref
     from repro_torch.kernels.ssm_scan import kernel as ssk
     from repro_torch.kernels.ssm_scan.ref import ssd_chunk_ref
@@ -66,12 +68,11 @@ def main() -> int:
             errs = []
             for bkv in (16, 32, 64, 128, 256):
                 for ns in (1, 2, 4, 8):
-                    try:
+                    err = None                 # "-": the ring does not fit
+                    if pd_tiling.smem_bytes(Dh, bkv, "bfloat16") <= SMEM_BYTES_PER_BLOCK:
                         got = pdk.paged_decode_cuda(*args, block_kv=bkv, n_splits=ns)
                         torch.cuda.synchronize()
                         err = float((got.float() - want).abs().max())
-                    except ValueError:         # the ring does not fit
-                        err = None
                     errs.append((bkv, ns, err))
                     if err is not None and not err <= cs.TOL["bfloat16"]:
                         failures.append(("pd", Dh, H, Hkv, bkv, ns, err))
@@ -89,9 +90,9 @@ def main() -> int:
             row.append(cs.time_ms(lambda: pdk.paged_decode_cuda(*args, block_kv=bkv, n_splits=ns), flush))
         print(f"pd timing bkv={bkv}: " + " ".join(f"{t:.4f}" for t in row), flush=True)
     print("pd library", cs.time_ms(lambda: cs.library_decode(*args), flush))
-    # the CUDA-core kernel for comparison (f32 q, bf16 pool)
+    # the 3xTF32 kernel for comparison (f32 q, bf16 pool)
     args32 = (args[0].float(),) + args[1:]
-    print("pd cuda-core f32 q ns=4", cs.time_ms(lambda: pdk.paged_decode_cuda(*args32, n_splits=4), flush))
+    print("pd 3xTF32 f32 q ns=4", cs.time_ms(lambda: pdk.paged_decode_cuda(*args32, n_splits=4), flush))
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     B, S, H, P, N = 1, 2048, 48, 64, 128

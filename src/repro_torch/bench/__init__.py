@@ -6,7 +6,7 @@ module run as ``python -m repro_torch.bench.<name>``, all of them by
 They print the reference runners' ``name,value,derived`` CSV lines over
 the port's own profiling cache (``build/repro_torch/bench/``), profile the
 points it lacks on the card, and default to the full-width geometry of
-``common.FULL``.  The beyond-paper benches (``engine_bench``,
-``serve_bench``, ``kernel_bench``, ``roofline_table``,
-``check_thresholds``) are not ported yet (ROADMAP.md, queue 1).
+``common.FULL``.  The beyond-paper benches of ``benchmarks/`` are here
+too, each a module of the same name: ``engine_bench``, ``serve_bench``,
+``kernel_bench``, ``roofline_table`` and ``check_thresholds``.
 """

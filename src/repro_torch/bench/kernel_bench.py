@@ -253,15 +253,23 @@ def run(print_fn=print, *, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
+# cycles of the spin enqueued ahead of each timed call (about 1 ms): the
+# host's work before the launch (a wrapper's checks and allocations) runs
+# while the card spins, so the interval holds no wait for the host
+SPIN_CYCLES = 2_000_000
+
+
 def card_time_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
     """Median time of one call in ms by CUDA events, with L2 flushed (a
-    256 MB write into ``flush``) before every call.  ``chip_smoke.py``
-    times its kernels with it too."""
+    256 MB write into ``flush``) before every call, then a spin of
+    ``SPIN_CYCLES`` so that the call is enqueued before the start event
+    runs.  ``chip_smoke.py`` times its kernels with it too."""
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -43,8 +43,8 @@ class HealthState:
       calls while degraded, one call is routed through the next-better
       level to test whether it healed.
 
-    The reference's serve failover chain (``serve.health.FailoverChain``,
-    ROADMAP queue 1 item 5c in the port) drives this; :meth:`metrics` is
+    The serve failover chain (``serve.health.FailoverChain``, in the
+    reference and in the port) drives this; :meth:`metrics` is
     what the engine surfaces per step so benches and tests assert on
     failovers/recoveries instead of log-scraping.
     """

@@ -54,7 +54,7 @@ class PagedDecodeKernel:
             lib.paged_decode_launch.argtypes = (
                 [vp] * 9 + [i] * 8 + [ctypes.c_float, i, i, vp])
             lib.paged_decode_launch.restype = i
-            lib.paged_decode_smem_bytes.argtypes = [i] * 5
+            lib.paged_decode_smem_bytes.argtypes = [i] * 3
             lib.paged_decode_smem_bytes.restype = ctypes.c_longlong
             self._lib = lib
         return self._lib
@@ -64,11 +64,10 @@ class PagedDecodeKernel:
                  n_splits: int = 1) -> torch.Tensor:
         """q: (B, H, Dh); k/v_pool: (P, bs, Hkv, Dh); block_table: (B, NB)
         int32; cache_len: (B,) int32 → (B, H, Dh) in q's dtype, attending
-        logical positions ``<= cache_len[b]``.  ``block_kv`` is the token
-        tile of the tensor-core kernel (bf16 q and pools), snapped to the
-        largest divisor of bs ≤ the request (None: 128); the CUDA-core
-        kernel of the other types sets no tile from it.  ``n_splits`` cuts
-        the KV axis into that many blocks."""
+        logical positions ``<= cache_len[b]``.  ``block_kv`` is the kernels'
+        token tile, a ceiling: the largest divisor of bs ≤ the request (None:
+        128) whose ring fits a block's shared memory in the pools' type.
+        ``n_splits`` cuts the KV axis into that many blocks."""
         B, H, Dh = q.shape
         P, bs, Hkv, Dh_k = k_pool.shape
         NB = block_table.shape[1]
@@ -96,11 +95,8 @@ class PagedDecodeKernel:
             raise ValueError("pools must be 16-byte aligned and q 4-byte aligned")
         rep = H // Hkv
         bkv = largest_dividing_block(bs, block_kv or 128)
-        smem = smem_bytes(Dh, rep, bkv, q.dtype, k_pool.dtype)
-        if smem > SMEM_BYTES_PER_BLOCK:
-            raise ValueError(
-                f"block_kv={bkv} at Dh={Dh} needs {smem} bytes of shared "
-                f"memory per block (> {SMEM_BYTES_PER_BLOCK})")
+        while smem_bytes(Dh, bkv, k_pool.dtype) > SMEM_BYTES_PER_BLOCK:
+            bkv = largest_dividing_block(bs, bkv - 1)
         scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
         n_splits = max(1, min(int(n_splits), NB))
         lib = self.load()

@@ -9,8 +9,8 @@ no other switch: the JAX package's ``impl=`` argument and its
 
 ``block_kv=None`` / ``n_splits=None`` consult the process autotuner for
 this launch shape, as in the reference (``ops.py:63``); explicit values
-always win.  ``block_kv`` is the token tile of the tensor-core kernel
-that bf16 q and pools run (see its source note).
+always win.  ``block_kv`` is the kernels' token tile (see the source
+note), a ceiling the wrapper lowers until the tile's ring fits.
 """
 
 from __future__ import annotations

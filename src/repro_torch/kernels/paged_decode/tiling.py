@@ -10,12 +10,13 @@ HBM); it stays, since it is part of the cost every spec ranks by.
 
 On the card (``csrc/paged_decode.cu``), the tuner times each config
 through ``_runner``: ``n_splits`` cuts the KV axis into that many blocks
-of the grid, and for bf16 q and pools ``block_kv`` is the tensor-core
-kernel's token tile, streamed through a ring of three shared-memory
-stages.  ``cost`` reports that ring as ``smem_bytes``, so under a CUDA
-spec the tuner rejects a tile the ring cannot hold (256 tokens at Dh
-128).  Other types run a CUDA-core kernel whose static shared memory no
-config changes.
+of the grid, and ``block_kv`` is the kernels' token tile, streamed through
+a ring of three shared-memory stages in the pool's type (bf16 q and pools
+run the bf16 tensor-core kernel, every other pair the 3xTF32 one, both on
+the same ring).  ``cost`` reports that ring as ``smem_bytes``, so under a
+CUDA spec the tuner rejects a tile the ring cannot hold: 256 tokens at Dh
+128 in bf16, 128 at Dh 128 and 256 at Dh 64 in f32.  The shape key holds
+q's type, which the tuner takes for the pools' too.
 """
 
 from __future__ import annotations
@@ -47,26 +48,17 @@ def shape_key(B, H, Hkv, Dh, NB, bs, dtype) -> dict:
 
 
 _STAGES = 3          # csrc/paged_decode.cu: kStages
-_MAX_REP = 8         # csrc/paged_decode.cu: kMaxRep
 
 
-def smem_bytes(Dh: int, rep: int, block_kv: int, dtype, kv_dtype=None) -> int:
-    """Shared memory of one block of the CUDA kernel at this tile; the
-    kernel computes the same number (``paged_decode_smem_bytes``).  bf16 q
-    and pools (``kv_dtype`` defaults to ``dtype``) with rep <= 8 take the
-    tensor-core kernel: a ring of 3 stages of K and V tiles of ``block_kv``
-    tokens rounded up to a power of two >= 16, in bf16.  Other types take
-    the CUDA-core kernel's static arrays (q_s, acc_s, m_s, l_s over ROWS =
-    1, 2 or 4 query rows and 8 warps), which block_kv does not change."""
-    kv_dtype = dtype if kv_dtype is None else kv_dtype
-    bf16 = [str(d).removeprefix("torch.") == "bfloat16" for d in (dtype, kv_dtype)]
-    if all(bf16) and rep <= _MAX_REP:
-        tile = 16
-        while tile < block_kv:
-            tile *= 2
-        return _STAGES * 2 * tile * Dh * 2
-    rows = 1 if rep == 1 else 2 if rep == 2 else 4
-    return 4 * rows * (9 * Dh + 16)
+def smem_bytes(Dh: int, block_kv: int, kv_dtype) -> int:
+    """Shared memory of one block of the CUDA kernels at this tile; the
+    source computes the same number (``paged_decode_smem_bytes``): a ring of
+    3 stages of K and V tiles of ``block_kv`` tokens rounded up to a power
+    of two >= 16, in the pools' type ``kv_dtype``."""
+    tile = 16
+    while tile < block_kv:
+        tile *= 2
+    return _STAGES * 2 * tile * Dh * bytes_per_element(kv_dtype)
 
 
 def candidates(shape: dict) -> list[dict]:
@@ -119,7 +111,7 @@ def cost(shape: dict, config: dict) -> KernelCost:
         flops=flops, hbm_bytes=hbm, vmem_bytes=vmem,
         n_steps=int(max(n_steps, 1)),
         mxu_min_dim=min(rep, bkv, Dh),
-        smem_bytes=smem_bytes(Dh, rep, bkv, shape["dtype"]),
+        smem_bytes=smem_bytes(Dh, bkv, shape["dtype"]),
     )
 
 

@@ -1,18 +1,22 @@
 // A functional CPU emulation of the CUDA features that the f32 flash
 // attention kernel (src/repro_torch/kernels/flash_attention/csrc/
-// flash_attention.cu) uses, so that its source, rewritten by
-// tests/test_torch_flash_f32_emulated.py, compiles with g++ and runs:
+// flash_attention.cu) and the 3xTF32 paged decode kernel
+// (src/repro_torch/kernels/paged_decode/csrc/paged_decode.cu) use, so that
+// their sources, rewritten by tests/test_torch_flash_f32_emulated.py and
+// tests/test_torch_paged_decode_emulated.py, compile with g++ and run:
 // one OS thread per CUDA thread, a block at a time; __syncthreads is a
-// barrier of the block; a warp-wide instruction (ldmatrix, mma.sync,
-// __shfl_xor_sync) gathers the operands of its 32 lanes behind a barrier
-// of the warp and gives each lane its part of the result; wgmma (m64nNk8
-// TF32, A from registers, B through a 128-byte-swizzle descriptor) does
-// the same over the 128 lanes of its warpgroup and completes at once (its
-// fences, commits and waits compile to nothing).  cp.async copies at once
-// (its wait is then a no-op).  mma.sync and wgmma read the TF32 part of
-// their operands (low 13 mantissa bits cleared), form exact products and
-// sum them in f32.  The bf16 kernel's instructions compile to nothing; it
-// is never launched here.
+// barrier of the block; a warp-wide instruction (ldmatrix, also .trans on
+// 16-bit elements, mma.sync, __shfl_xor_sync) gathers the operands of its
+// 32 lanes behind a barrier of the warp and gives each lane its part of
+// the result; wgmma (m64nNk8 TF32, A from registers, B through a
+// 128-byte-swizzle descriptor) does the same over the 128 lanes of its
+// warpgroup and completes at once (its fences, commits and waits compile
+// to nothing).  cp.async copies at once (its wait is then a no-op).
+// mma.sync and wgmma read the TF32 part of their operands (low 13 mantissa
+// bits cleared), form exact products and sum them in f32.  bf16 values
+// convert as on the card (round to nearest even); the bf16 tensor-core
+// instructions compile to nothing, and the kernels that use them are never
+// launched here.
 #pragma once
 #include <math.h>
 #include <stddef.h>
@@ -62,11 +66,21 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 
+inline float __expf(float x) { return expf(x); }
+
 struct __nv_bfloat16 { unsigned short x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
-inline __nv_bfloat162 __floats2bfloat162_rn(float, float) { return {}; }
-inline float __low2float(__nv_bfloat162) { return 0.f; }
-inline float __high2float(__nv_bfloat162) { return 0.f; }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  const unsigned u = __float_as_uint(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {static_cast<unsigned short>((u >> 16) | 0x40)};
+  return {static_cast<unsigned short>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(unsigned(b.x) << 16); }
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
+inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
 typedef uint32_t cuuint32_t;
 typedef uint64_t cuuint64_t;
 typedef int CUresult;
@@ -129,6 +143,22 @@ inline void emu_ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   w.lane[l][0] = addr;
   w.bar.arrive_and_wait();
   for (int i = 0; i < 4; ++i) memcpy(&r[i], emu_smem() + w.lane[8 * i + l / 4][0] + 4 * (l % 4), 4);
+  w.bar.arrive_and_wait();
+}
+
+// ldmatrix .x4 .trans .b16: lane l gets the 16-bit elements (2 (l % 4), l / 4)
+// and (2 (l % 4) + 1, l / 4) of matrix i, low and high half of r[i]
+inline void emu_ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  EmuWarp& w = emu_warp();
+  const int l = threadIdx.x % 32;
+  w.lane[l][0] = addr;
+  w.bar.arrive_and_wait();
+  for (int i = 0; i < 4; ++i) {
+    uint16_t lo, hi;
+    memcpy(&lo, emu_smem() + w.lane[8 * i + 2 * (l % 4)][0] + 2 * (l / 4), 2);
+    memcpy(&hi, emu_smem() + w.lane[8 * i + 2 * (l % 4) + 1][0] + 2 * (l / 4), 2);
+    r[i] = uint32_t(lo) | (uint32_t(hi) << 16);
+  }
   w.bar.arrive_and_wait();
 }
 

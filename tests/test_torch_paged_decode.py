@@ -167,29 +167,27 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Dh", [64, 128])
 def test_smem_bytes_formula(Dh, dtype):
-    """Shared memory of one block of the CUDA kernel
-    (``paged_decode_smem_bytes`` in the source): bf16 q and pools with rep
-    <= 8 take the tensor-core kernel, a ring of 3 stages of K and V tiles of
-    block_kv tokens rounded up to a power of two >= 16, in bf16; other types
-    (mixed ones too) and rep > 8 the CUDA-core kernel's static arrays, which
-    block_kv does not change.  ``cost`` reports the config's tile's, so the
-    h100 tuner rejects the 256-token tile at Dh 128 (393,216 B)."""
-    for rep in (1, 2, 4, 5, 8, 16):
-        rows = 1 if rep == 1 else 2 if rep == 2 else 4
-        for bkv, tile in [(1, 16), (16, 16), (24, 32), (32, 32), (64, 64),
-                          (100, 128), (128, 128), (256, 256)]:
-            ring = dtype == "bfloat16" and rep <= 8
-            want = 3 * 2 * tile * Dh * 2 if ring else 4 * rows * (9 * Dh + 16)
-            assert tiling.smem_bytes(Dh, rep, bkv, dtype) == want
-            assert tiling.smem_bytes(Dh, rep, bkv, TORCH_DT[dtype]) == want
-        assert tiling.smem_bytes(Dh, rep, 64, dtype, "float32") == 4 * rows * (9 * Dh + 16)
+    """Shared memory of one block of the CUDA kernels
+    (``paged_decode_smem_bytes`` in the source): both kernels, the bf16
+    tensor-core one and the 3xTF32 one of every other type pair and rep,
+    take a ring of 3 stages of K and V tiles of block_kv tokens rounded up
+    to a power of two >= 16, in the pools' type.  ``cost`` reports the
+    config's tile's, so the h100 tuner rejects the tiles whose ring does not
+    fit 232,448 B: 256 tokens at Dh 128 in bf16 (393,216 B), 128 and 256 at
+    Dh 128 and 256 at Dh 64 in f32."""
+    bpe = 2 if dtype == "bfloat16" else 4
+    for bkv, tile in [(1, 16), (16, 16), (24, 32), (32, 32), (64, 64),
+                      (100, 128), (128, 128), (256, 256)]:
+        want = 3 * 2 * tile * Dh * bpe
+        assert tiling.smem_bytes(Dh, bkv, dtype) == want
+        assert tiling.smem_bytes(Dh, bkv, TORCH_DT[dtype]) == want
     shape = tiling.shape_key(8, 32, 8, Dh, 8, 256, dtype)
     configs = tiling.candidates(shape)
     for c in configs:
-        want = tiling.smem_bytes(Dh, 4, c["block_kv"], dtype)
-        assert tiling.cost(shape, c).smem_bytes == want
+        assert tiling.cost(shape, c).smem_bytes == tiling.smem_bytes(Dh, c["block_kv"], dtype)
     rejected = {c["block_kv"] for c in configs if not smem_ok(tiling.cost(shape, c))}
-    assert rejected == ({256} if (dtype, Dh) == ("bfloat16", 128) else set())
+    assert rejected == {("bfloat16", 64): set(), ("bfloat16", 128): {256},
+                        ("float32", 64): {256}, ("float32", 128): {128, 256}}[dtype, Dh]
 
 
 def _bf16_ulp(o):
@@ -231,3 +229,52 @@ def test_p_as_two_bf16_terms(seed):
     assert two <= 1e-4 and flips_two < 0.05
     assert one > 1e-3 and flips_one > 1.0
 
+
+
+def _tf32(x):
+    """x's TF32 part: its low 13 mantissa bits cleared (what the tensor
+    cores read of an operand)."""
+    return (x.view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+def _hi_lo(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hi_lo_rows_meet_the_f32_gate(seed):
+    """The 3xTF32 kernel's products, emulated: S = Q·Kᵀ with A = [Q_hi;
+    Q_lo] (rows g and g + 8 of one product, summed) plus Q_hi·K_lo, and
+    O += P·V with A = [P_hi; P_lo] plus P_hi·V_lo, each operand's TF32 part
+    (hi = x with the low 13 mantissa bits cleared, lo = TF32(x - hi)), the
+    products summed in float64 so that only the operands' form differs.
+    Against the same attention in float64 the outputs stay within the 2e-5
+    gate of f32 outputs (``chip_smoke.TOL``); with a single TF32 term for
+    each operand (a plain TF32 product) they are off by more than 1e-4."""
+    rng = np.random.default_rng(seed)
+    rows, n, Dh = 8, 300, 128                # a decode row group over 300 tokens
+    q, k = (torch.from_numpy(rng.standard_normal(s)).float() for s in ((rows, Dh), (n, Dh)))
+    v = torch.from_numpy(3 * rng.standard_normal((n, Dh))).float()
+    scale = 1 / math.sqrt(Dh)
+
+    def attend(s):
+        p = torch.exp((s - s.amax(-1, keepdim=True)) * scale).float()
+        return p, p.double().sum(-1, keepdim=True)
+
+    s64 = q.double() @ k.double().T
+    p64 = torch.exp((s64 - s64.amax(-1, keepdim=True)) * scale)
+    exact = p64 @ v.double() / p64.sum(-1, keepdim=True)
+
+    (qh, ql), (kh, kl), (vh, vl) = _hi_lo(q), _hi_lo(k), _hi_lo(v)
+    s = (qh.double() @ kh.double().T + ql.double() @ kh.double().T
+         + qh.double() @ kl.double().T).float()
+    p, l = attend(s)
+    ph, pl = _hi_lo(p)
+    o = (ph.double() @ vh.double() + pl.double() @ vh.double()
+         + ph.double() @ vl.double()) / l
+    three = float((o - exact).abs().max())
+
+    p1, l1 = attend((_tf32(q).double() @ _tf32(k).double().T).float())
+    one = float(((_tf32(p1).double() @ _tf32(v).double()) / l1 - exact).abs().max())
+    assert three <= 2e-5 < 1e-4 < one
