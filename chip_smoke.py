@@ -12,9 +12,10 @@ Phases (any failure raises and the script exits non-zero):
    print ``-Xptxas -v`` (registers, spills) for each kernel instantiation
    and the count of tensor-core instructions (HGMMA, HMMA) in the SASS
    (``cuobjdump -sass``) of all four libraries, none of which may be 0
-   (``conv_mm``: HGMMA, its bf16 ``wgmma`` kernel), and of each f32 flash
-   instantiation on its own (HGMMA and HMMA, no spills) and of each 3xTF32
-   paged decode instantiation (HMMA, no spills); hold the shared memory
+   (``conv_mm``: HGMMA, its ``wgmma`` kernels), and of each f32 flash
+   instantiation on its own (HGMMA and HMMA, no spills), of each 3xTF32
+   paged decode instantiation (HMMA, no spills) and of each 3xTF32
+   ``conv_mm`` instantiation (HGMMA, no spills); hold the shared memory
    the tiling models report against the sources' own formulas, all four
    kernels, ``conv_mm`` at every tile its two tile rules give;
 3. tune — the kernel autotuner on the card: a ``KernelTuner`` for this
@@ -33,7 +34,8 @@ Phases (any failure raises and the script exits non-zero):
    f32 q and pools, f32 q over bf16 pools and bf16 q over f32 pools at rep
    1, 4, 5, 8 and 16, and bf16 at rep 16), the MM convolution on
    every convolution shape of full-width ResNet-50 and on edge cases, f32
-   and bf16, and at the kernel bench's bf16 shape,
+   and bf16, and at the kernel bench's bf16 shape (f32 timed against the
+   CUDA-core and the 3xTF32 tensor-core bound),
    flash attention at the qwen3-4b prefill shape and edge cases in bf16
    and f32 (decode, a chunk at an offset, head dims 64 and 32, fully
    masked rows against mean(V), also over a ragged last tile), the SSD
@@ -173,8 +175,9 @@ Phases (any failure raises and the script exits non-zero):
    must match the train phase's first loss; (d) ``serve_bench`` at full
    width: internlm2-1.8b drawn once and served by ``run`` (lockstep
    against continuous, ``SERVE_RUN_PASSES`` passes, each printed; its two
-   host-clock conditions read the median pass), ``run_chunked`` and
-   ``run_chaos``, paged-decode launches held to decode steps x 24 around
+   host-clock conditions read the median pass), ``run_chunked`` (one
+   measured pass a mode, ``SERVE_CHUNK_REPEATS``: its gates are step
+   counts) and ``run_chaos``, paged-decode launches held to decode steps x 24 around
    each, the reference's ``check_thresholds`` conditions, the kernel against its plain version
    on the served pool; (e) ``kernel_bench.run()`` (the tuner's model rows,
    the plain versions timed, and each Hopper kernel's ``card_us`` row at
@@ -184,8 +187,9 @@ Phases (any failure raises and the script exits non-zero):
    ledger); each sub-phase's seconds;
 12. dist — sharded execution (``repro_torch.launch.{mesh,lowering,dryrun}``,
    ``repro_torch.distributed``): (a) the dry-run, in a child process
-   beside (b)-(d) (host work on meta tensors under a ``fake`` process
-   group): full-width
+   started before the train phase and collected here (host work on meta
+   tensors under a ``fake`` process group, beside the train phase, whose
+   timed steps are bound by the card): full-width
    internlm2-1.8b, qwen3-4b (train_4k, prefill_32k, decode_32k) and
    qwen3-moe-30b-a3b (train_4k, all 48 layers) on the production 16x16
    mesh, internlm2-1.8b train_4k on 2x16x16 and on 1x1, and the train
@@ -209,8 +213,9 @@ Phases (any failure raises and the script exits non-zero):
    ``check_thresholds.evaluate`` over the benches phase's results and
    the calibration's: every condition printed, a ``FAIL`` fails the run;
 13. a ``{"kernels": [...]}`` JSON line (``conv_mm`` with the ResNet-50
-   forward's f32 sums as its unprefixed numbers and the bf16 ones as
-   ``bf16_forward_*``, and the bench shape's bf16 ``bf16_bench_*``; the
+   forward's f32 sums as its unprefixed numbers, ``bound_ms`` the 3xTF32
+   one and ``cuda_core_bound_ms`` the f32 work on the CUDA cores, the bf16
+   ones as ``bf16_forward_*``, and the bench shape's bf16 ``bf16_bench_*``; the
    flash entry with the f32 prefill's ``f32_ms``, ``f32_library_ms`` and
    ``f32_bound_ms`` and the train
    phase's ``train_*`` numbers, paged decode with the 3xTF32 kernel's
@@ -419,6 +424,10 @@ def sass_mma_count(lib_path: str, by_function: bool = False) -> dict | None:
     return {op: sum(c[op] for c in counts.values()) for op in ops}
 
 
+# the f32 convolution kernel (3xTF32 on wgmma): both tiles its rule gives
+# (64 x 64, 128 x 128) x both A gathers
+CONV_TF32_INSTANTIATIONS = {f"conv_mm_tf32_wgmma_kernel<{b}, {b}, {vec_a}>"
+                            for b in (64, 128) for vec_a in (0, 1)}
 FLASH_F32_INSTANTIATIONS = {f"flash_attention_f32_kernel<{dh}, {bn}>"
                             for dh in (32, 64, 128) for bn in (32, 64)}
 # the 3xTF32 paged decode kernel: (q, pools) x head dim x every tile whose ring fits
@@ -2888,18 +2897,22 @@ def conv_shape(s, node) -> tuple:
     return (*s, node.k, node.out, node.stride, node.pad)
 
 
-def conv_bound(N, H, W, C, K, O, stride, pad, dtype="float32") -> tuple[float, str, float]:
-    """(bound ms, what bounds it, ms at the TF32 tensor-core peak): x and
-    w read once and y written once, in ``dtype``, against
-    2·N·OH·OW·K·K·C·O flops at that type's peak: f32 on the CUDA cores
-    (the f32 kernel's), bf16 on the tensor cores (the bf16 kernel's)."""
+def conv_bound(N, H, W, C, K, O, stride, pad, dtype="float32",
+               tc: bool = False) -> tuple[float, str]:
+    """(bound ms, what bounds it): x and w read once and y written once, in
+    ``dtype``, against 2·N·OH·OW·K·K·C·O flops at that type's peak: f32 on
+    the CUDA cores (67 TFLOP/s; the retired f32 kernel's), bf16 on the
+    tensor cores (the bf16 kernel's); with ``tc``, f32 as three TF32
+    products an f32 one on the tensor cores (3 × flops at 495 TFLOP/s),
+    the f32 kernel's way to f32 accuracy."""
     OH, OW = 1 + (H + 2 * pad - K) // stride, 1 + (W + 2 * pad - K) // stride
     itemsize, peak = (2, BF16_FLOPS) if dtype == "bfloat16" else (4, F32_FLOPS)
+    if tc and dtype == "float32":
+        peak = TF32_FLOPS / 3
     nbytes = itemsize * (N * H * W * C + K * K * C * O + N * OH * OW * O)
     flops = 2 * N * OH * OW * K * K * C * O
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            max(t_bytes, flops / TF32_FLOPS) * 1e3)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def conv_inputs(gen, N, H, W, C, K, O, dtype):
@@ -3021,42 +3034,54 @@ def conv_kernel_phase(flush) -> dict:
         for name, dtype, short in types:
             x, w = conv_inputs(gen, 128, H, W, C, K, O, dtype)
             ms, plain, lib, lib_err = three(x, w, s, p)
-            bound_ms, by, tf32_ms = conv_bound(128, H, W, C, K, O, s, p, name)
-            ceiling = (f"; at the TF32 tensor-core peak {tf32_ms:.4f} ms"
-                       if name == "float32" else "")
+            bound_ms, by = conv_bound(128, H, W, C, K, O, s, p, name)
+            tc_ms, tc_by = conv_bound(128, H, W, C, K, O, s, p, name, tc=True)
+            ceiling = (f" on the CUDA cores; 3xTF32 bound {tc_ms:.4f} ms ({tc_by}) -> "
+                       f"{tc_ms / ms:.1%} of it" if name == "float32" else "")
             print(f"timing conv_mm {label} N=128 {H}x{W} C={C} K={K} O={O} s={s} p={p} "
                   f"{short}: kernel {ms:.4f} ms, plain {plain:.4f} ms, F.conv2d (cuDNN, "
                   f"no TF32) {lib:.4f} ms (max_abs_err vs plain {lib_err:.3e}), bound "
                   f"{bound_ms:.4f} ms ({by}) -> {bound_ms / ms:.1%} of bound{ceiling}")
 
+    # f32: the kernel's bound is three TF32 products an f32 one on the
+    # tensor cores (the line's bound_ms); the f32 work on the CUDA cores,
+    # the retired kernel's bound, is printed and kept beside it
     out: dict = {}
     for name, dtype, short in types:
         total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-        by_ops = by_bytes = 0.0
+        by_ops = by_bytes = core_ms = 0.0
         for (H, W, C, K, O, s, p), n in counts.items():
             x, w = conv_inputs(gen, 128, H, W, C, K, O, dtype)
             conv_check(x, w, s, p)
             ms, plain, lib, _ = three(x, w, s, p, reps=10, warmup=2)
-            bound_ms, by, _ = conv_bound(128, H, W, C, K, O, s, p, name)
+            core, _ = conv_bound(128, H, W, C, K, O, s, p, name)
+            bound_ms, by = conv_bound(128, H, W, C, K, O, s, p, name, tc=name == "float32")
             for key, v in zip(total, (ms, plain, lib, bound_ms)):
                 total[key] += n * v
+            core_ms += n * core
             by_ops += n * bound_ms if by == "operations" else 0.0
             by_bytes += n * bound_ms if by == "bytes" else 0.0
         total["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
+        cores = (f"; on the CUDA cores {core_ms:.3f} ms -> {core_ms / total['ms']:.1%} of it"
+                 if name == "float32" else "")
         print(f"timing conv_mm all {len(convs)} convolutions of one ResNet-50 forward, "
               f"N=128 32x32 {short}: kernel {total['ms']:.3f} ms, plain "
-              f"{total['plain_ms']:.3f} ms, F.conv2d {total['library_ms']:.3f} ms, bound "
-              f"{total['bound_ms']:.3f} ms ({by_ops:.3f} ms of it bound by operations, "
-              f"{by_bytes:.3f} ms by bytes) -> {total['bound_ms'] / total['ms']:.1%} of bound")
+              f"{total['plain_ms']:.3f} ms, F.conv2d (cuDNN, no TF32) "
+              f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms"
+              f"{' (3xTF32)' if name == 'float32' else ''} ({by_ops:.3f} ms of it bound by "
+              f"operations, {by_bytes:.3f} ms by bytes) -> "
+              f"{total['bound_ms'] / total['ms']:.1%} of bound{cores}")
         # f32's numbers are the line's unprefixed keys (the main path's type)
-        out.update(total if name == "float32"
-                   else {f"bf16_forward_{k}": v for k, v in total.items()})
+        if name == "float32":
+            out.update(total, cuda_core_bound_ms=core_ms)
+        else:
+            out.update({f"bf16_forward_{k}": v for k, v in total.items()})
 
     N, H, W, C, K, O, s, p = CONV_BENCH
     x, w = conv_inputs(gen, N, H, W, C, K, O, torch.bfloat16)
     err = conv_check(x, w, s, p)
     ms, plain, lib, lib_err = three(x, w, s, p)
-    bound_ms, by, _ = conv_bound(N, H, W, C, K, O, s, p, "bfloat16")
+    bound_ms, by = conv_bound(N, H, W, C, K, O, s, p, "bfloat16")
     print(f"timing conv_mm bench shape N={N} {H}x{W} C={C} K={K} O={O} s={s} p={p} bf16: "
           f"max_abs_err vs plain {err:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
           f"F.conv2d (cuDNN) {lib:.4f} ms (max_abs_err vs plain {lib_err:.3e}), bound "
@@ -3067,9 +3092,10 @@ def conv_kernel_phase(flush) -> dict:
     return out
 
 
-def cnn_step_check() -> None:
+def cnn_step_check(seed: int = 0) -> dict:
     """One SGD-momentum step of a reduced ResNet-50 (width 0.25, 16x16,
-    bs 8, seed 0, zero momentum) on the card (the kernel, cuDNN backward)
+    bs 8, weights and batch from ``seed``, zero momentum) on the card (the
+    kernel, cuDNN backward)
     and on the CPU (the plain version), both f32, against the same step on
     the CPU in float64, the exact result.
 
@@ -3084,7 +3110,8 @@ def cnn_step_check() -> None:
     on the card with the forward convolutions run by the plain version
     instead of the kernel (cuDNN backward as before), is printed beside
     them and gates nothing: the two card readings differ only in the
-    forward's summation order."""
+    forward's summation order.  Returns the card's relative errors by
+    part; raises where one is over its tolerance."""
     import torch
 
     from repro_torch.convert import cnn_params_from_numpy, tree_leaves, tree_map
@@ -3094,8 +3121,8 @@ def cnn_step_check() -> None:
     from repro_torch.models.cnn import build_resnet50
 
     model = build_resnet50(width_mult=0.25, input_hw=16)
-    init = model.init(0)
-    rng = np.random.default_rng(0)
+    init = model.init(seed)
+    rng = np.random.default_rng(seed)
     x = rng.normal(size=(8, 16, 16, 3)).astype(np.float32)
     y = rng.integers(0, 100, size=(8,)).astype(np.int32)
     out = {}
@@ -3129,14 +3156,15 @@ def cnn_step_check() -> None:
     step_share = 0.01 * norm("momentum") / norm("params")      # lr·‖g‖/‖p‖
     tols = {"params": step_share * STEP_GRAD_TOL + 1e-6, "momentum": STEP_GRAD_TOL,
             "loss": 1e-4}
-    print("cnn step reduced ResNet-50 (width 0.25, 16x16, bs 8), relative error against "
-          "the float64 step: " + "; ".join(
+    print(f"cnn step reduced ResNet-50 (width 0.25, 16x16, bs 8, seed {seed}), relative "
+          "error against the float64 step: " + "; ".join(
               f"{part} card {rel('card', part):.3e} / card with the plain forward "
               f"{rel('card, plain forward', part):.3e} / CPU {rel('cpu', part):.3e} "
               f"(tol {tol:.3e})" for part, tol in tols.items()))
     for part, tol in tols.items():
         if not rel("card", part) <= tol:
             raise AssertionError(f"card step {part} off the exact step: {rel('card', part):.3e}")
+    return {part: rel("card", part) for part in tols}
 
 
 def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
@@ -3639,6 +3667,10 @@ SERVE_SPEEDUP_MIN = 1.0                  # the reference's check_thresholds gate
 # passes of serve_bench.run on the same weights: its two host-clock gates
 # (continuous req/s and goodput against lockstep's) read the median pass
 SERVE_RUN_PASSES = 3
+# measured passes of serve_bench.run_chunked a mode (the bench's own
+# CHUNK_REPEATS is 3): every condition it gates is a step count, the same on
+# each pass, and only its wall-clock ratios, which it reports, pool passes
+SERVE_CHUNK_REPEATS = 1
 CHUNKED_TTFT_STEPS_RATIO_MAX = 1.10
 CHAOS_GOODPUT_RATIO_MIN = 0.25
 ENGINE_PARITY_TOL = 1e-9
@@ -3768,8 +3800,8 @@ def benches_serve(drawing) -> dict:
     """(d) ``serve_bench`` at full width: internlm2-1.8b (24 layers, bf16,
     seed 0; ``drawing``, a :func:`host_draw` started with the phase, so
     that it runs beside the planner and the launcher) drawn once and
-    passed to ``run``, ``run_chunked`` and
-    ``run_chaos``; paged-decode launches counted around each and held to
+    passed to ``run``, ``run_chunked`` (``SERVE_CHUNK_REPEATS`` measured
+    passes a mode) and ``run_chaos``; paged-decode launches counted around each and held to
     the continuous engines' decode steps x layers (the tuner's counted
     apart); the reference's threshold conditions, all gated; the kernel
     against its plain version on the served pool."""
@@ -3799,12 +3831,19 @@ def benches_serve(drawing) -> dict:
         last["args"], last["kw"] = args, kw
         return launch(*args, **kw)
 
+    def run_chunked(*args, **kw):
+        repeats, serve_bench.CHUNK_REPEATS = serve_bench.CHUNK_REPEATS, SERVE_CHUNK_REPEATS
+        try:
+            return serve_bench.run_chunked(*args, **kw)
+        finally:
+            serve_bench.CHUNK_REPEATS = repeats
+
     results, launches, secs = {}, {}, {}
     runs = [f"run {i + 1}" for i in range(SERVE_RUN_PASSES)]
     ops.paged_decode_cuda = keep_last
     try:
         for name, fn in ([(r, serve_bench.run) for r in runs]
-                         + [("chunked", serve_bench.run_chunked),
+                         + [("chunked", run_chunked),
                             ("chaos", serve_bench.run_chaos)]):
             torch.cuda.synchronize()
             paged_decode_cuda.launches = 0
@@ -4014,6 +4053,8 @@ DRYRUN_CELLS = (("16x16", "internlm2-1.8b", "train_4k"),
                 ("1x1", "internlm2-1.8b", "train_4k"),
                 ("2x4", "internlm2-1.8b", DIST_SHAPE))
 DRYRUN_DIR = ROOT / "build" / "repro_torch" / "dist"
+# the child's own limit, from its start (it takes about 90 s); collected
+# later than that, it is waited for only what is left of it
 DRYRUN_TIMEOUT_S = 900
 # (c) the planner's chosen layout of the train cell over 8 devices (pipe x
 # data x model); its per-device Γ and Φ are read from the benches phase's plan
@@ -4038,6 +4079,7 @@ def dryrun_child(out_dir: str) -> None:
     from repro_torch.configs.base import SHAPES, ShapeSpec
     from repro_torch.launch import dryrun
 
+    t_start = time.perf_counter()
     torch.set_num_threads(1)
     torch.cuda.init()
     SHAPES[DIST_SHAPE] = ShapeSpec(DIST_SHAPE, PLAN_SEQ, PLAN_BATCH, "train")
@@ -4061,7 +4103,7 @@ def dryrun_child(out_dir: str) -> None:
     with open(ledger) as f:
         records = [json.loads(line) for line in f if line.strip()]
     print("DRYRUN_RESULT " + json.dumps({
-        "records": records, "seconds": secs,
+        "records": records, "seconds": secs, "child_s": time.perf_counter() - t_start,
         "done_second": passes[1].count("DONE "), "traced_second": passes[1].count("=== "),
         "kernels_before": before[0], "kernels_after": after[0],
         "allocated": [before[1], after[1]], "max_allocated": [before[2], after[2]]}),
@@ -4145,8 +4187,10 @@ def dist_dryrun(started) -> dict:
     moe = recs[("qwen3-moe-30b-a3b", "train_4k", "16x16")]
     if not moe["bytes_by_kind"].get("all-to-all", 0) > 0:
         raise AssertionError(f"no all-to-all bytes on the MoE cell: {moe['bytes_by_kind']}")
-    print(f"dist dryrun: {len(recs)} cells traced and re-read in {wall:.1f} s of the child "
-          f"(beside (b)-(d)); kernel launches and card memory unchanged "
+    print(f"dist dryrun: {len(recs)} cells traced and re-read in {res['child_s']:.1f} s of "
+          f"the child (beside the train phase; collected {wall:.1f} s after its start, "
+          f"limit {DRYRUN_TIMEOUT_S} s from its start); kernel launches and card memory "
+          f"unchanged "
           f"({res['max_allocated'][0]} bytes peak)")
     return {"records": recs, "wall": wall}
 
@@ -4338,18 +4382,18 @@ def dist_thresholds(benches: dict, coll: dict) -> None:
         raise AssertionError(f"check_thresholds: {failures}")
 
 
-def dist_phase(benches: dict, trained: dict) -> dict:
-    """(a) the dry-run in a child process and (d)'s collective calibration
-    on two CPU ranks, both started first and run beside (b) one real rank
-    and (c) rank 0 of a sharded layout; then their results and the
-    reference's thresholds (see the module docstring, phase 12).  The
-    dry-run starts here, not earlier: beside the measured phases its host
-    work slowed each by 15-30%."""
+def dist_phase(benches: dict, trained: dict, dryrun_started) -> dict:
+    """(a) the dry-run, whose child process ``main`` started before the
+    train phase, and (d)'s collective calibration on two CPU ranks,
+    started first and run beside (b) one real rank and (c) rank 0 of a
+    sharded layout; then their results and the reference's thresholds (see
+    the module docstring, phase 12).  The dry-run's host work runs beside
+    the train phase, whose steps are the card's time (device idle about
+    2%, their time unmoved by it); beside the host-bound phases (layers,
+    serving, the profiled CNN) it slowed each by 15-30%."""
     from repro_torch.bench import engine_bench
 
     t0 = time.perf_counter()
-    dryrun_started = dryrun_start()
-    atexit.register(dryrun_stop, dryrun_started)
     ledger = DRYRUN_DIR / "collective.jsonl"
     ledger.unlink(missing_ok=True)
     lines = []
@@ -4414,8 +4458,8 @@ def main() -> int:
         print(f"build {name} ptxas -v by instantiation: " + "; ".join(
             f"{k} {regs} registers, {spill} bytes spilled" for k, regs, spill in ptxas_kernels(log)))
     # the tensor-core kernels: bf16 paged decode, flash (bf16 and f32) and
-    # conv_mm, ssd_chunk (3xTF32); conv_mm's bf16 kernel is a wgmma kernel
-    # (HGMMA); every f32 flash instantiation is held on its own
+    # conv_mm, ssd_chunk (3xTF32); both conv_mm kernels are wgmma kernels
+    # (HGMMA); every f32 flash and conv_mm instantiation is held on its own
     for name, lib in zip(wrappers, libs):
         mma = sass_mma_count(lib._name)
         if mma is None:
@@ -4428,13 +4472,17 @@ def main() -> int:
         if name == "conv_mm" and not mma["HGMMA"] > 0:
             raise AssertionError("the conv_mm library has no HGMMA instruction")
     # each f32 flash instantiation: S on wgmma (HGMMA), P·V on mma.sync
-    # (HMMA); each 3xTF32 paged decode instantiation: mma.sync (HMMA)
+    # (HMMA); each 3xTF32 paged decode instantiation: mma.sync (HMMA); each
+    # f32 conv_mm instantiation: wgmma (HGMMA)
     check_build("flash_attention f32", libs[2]._name,
                 Path(libs[2]._name).with_suffix(".log").read_text(),
                 FLASH_F32_INSTANTIATIONS, ("HGMMA", "HMMA"))
     check_build("paged_decode 3xTF32", libs[0]._name,
                 Path(libs[0]._name).with_suffix(".log").read_text(),
                 DECODE_TF32_INSTANTIATIONS, ("HMMA",))
+    check_build("conv_mm f32", libs[1]._name,
+                Path(libs[1]._name).with_suffix(".log").read_text(),
+                CONV_TF32_INSTANTIATIONS, ("HGMMA",))
     check_smem_formulas(libs[2], libs[3], libs[1], libs[0])
 
     t0 = time.perf_counter()
@@ -4454,6 +4502,11 @@ def main() -> int:
     served = serve_phase()
     reference_launches = reference_phase()
     layered = layers_phase()
+    # the dist phase's dry-run (host work on meta tensors, one core, about
+    # as long as the train phase) in a child process beside the train
+    # phase, whose timed steps are the card's (device idle about 2%)
+    dryrun_started = dryrun_start()
+    atexit.register(dryrun_stop, dryrun_started)
     trained = train_phase()
     est = served["admit"]["train_estimate"]
     print(f"admit internlm2-1.8b train bs=4 seq=2048: Γ {est.gamma_mb / 1e3:.3f} GB, Φ "
@@ -4473,7 +4526,7 @@ def main() -> int:
     engine = engine_phase(cnn)
     bench = bench_phase(cnn)
     benches = benches_phase(trained)
-    dist_phase(benches, trained)
+    dist_phase(benches, trained, dryrun_started)
     card = benches["kernel_engine_bench"]["kernel"]["card"]
 
     def kernel_bench_fields(name: str) -> dict:

@@ -1,11 +1,12 @@
 """MM convolution — the Hopper CUDA kernel's build, binding and launch
 counter (port of ``repro/kernels/conv_mm/kernel.py``).
 
-The kernel itself is ``csrc/conv_mm.cu``; its header note says what it
-replaces, what bounds it and how it is laid out.  ``conv_mm_cuda`` builds
+The kernels themselves are ``csrc/conv_mm.cu`` (f32: 3xTF32 on ``wgmma``;
+bf16: ``wgmma``); its header note says what they replace, what bounds
+them and how they are laid out.  ``conv_mm_cuda`` builds
 the library at first use (:mod:`repro_torch.kernels.build`), checks its
 inputs, picks the tile (``tiling.tile_for``: ``conv_tile`` for f32,
-``conv_tile_bf16`` for the bf16 ``wgmma`` kernel) and the copy widths
+``conv_tile_bf16`` for bf16) and the copy widths
 (16-byte copies of x where C is a multiple of 4 f32 or 8 bf16 values, of
 w where O is), allocates the output and launches on PyTorch's current
 stream.

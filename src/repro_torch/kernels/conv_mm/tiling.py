@@ -27,22 +27,29 @@ from repro_torch.kernels.autotune import (
 __all__ = ["shape_key", "candidates", "default", "cost", "conv_tile",
            "conv_tile_bf16", "tile_for", "smem_bytes", "NUM_SMS"]
 
-# csrc/conv_mm.cu: the f32 kernel's K chunk and ring depth (f32 values), and
-# the bf16 kernel's (bf16 values, stages 1024-byte aligned)
-_BK, _STAGES = 16, 3
-_BK16, _STAGES16, _ALIGN16 = 64, 4, 1024
+# csrc/conv_mm.cu: both kernels take K in chunks of one 128-byte swizzle row
+# (32 f32 or 64 bf16 values) through a ring of 4 stages, 1024-byte aligned
+_ROW_BYTES, _STAGES, _ALIGN = 128, 4, 1024
 NUM_SMS = 132                 # streaming multiprocessors of an H100 SXM
 
 
 def conv_tile(M: int, O: int) -> tuple[int, int]:
-    """(pixels, channels) of the f32 kernel's block tile for a GEMM of M
-    output pixels and O output channels: 64 channels where O ≤ 64 (a
-    128-wide tile would be half empty), and 64 pixels where 128-pixel
-    tiles would leave some of the card's SMs without a block (bs 2, or the
-    4 × 4 stage at small batch); else 128 × 128."""
-    bn = 64 if O <= 64 else 128
-    bm = 128 if -(-M // 128) * -(-O // bn) >= NUM_SMS else 64
-    return bm, bn
+    """(pixels, channels) of the f32 (3xTF32 ``wgmma``) kernel's block
+    tile, one warpgroup per 64 pixels, for a GEMM of M output pixels and O
+    output channels: 128 × 128 where O > 64 and the 64 × 64 grid has more
+    blocks than the 132 SMs hold at once (two each), else 64 × 64.  A 128 ×
+    128 block fills its SM alone (197,632 B of shared memory) and does
+    about 1.17× the work of the two 64 × 64 blocks an SM holds in the same
+    time, so 64 × 64 wins while its grid fits in one such wave and loses
+    once it takes a second: on an H100 64 × 64 was the faster at every
+    64-block grid of 128 × 128 (256 of 64 × 64) and 128 × 128 at every
+    grid of 80-120 blocks among the profiled CNN's shapes.  The mixed tiles
+    were never the fastest at any ResNet-50 shape at bs 128, so the f32
+    kernel is built at 64 × 64 and 128 × 128 alone
+    (``scripts/conv_mm_variants.py --f32``, PERF.md §6)."""
+    if O > 64 and -(-M // 64) * -(-O // 64) > 2 * NUM_SMS:
+        return 128, 128
+    return 64, 64
 
 
 def conv_tile_bf16(M: int, O: int) -> tuple[int, int]:
@@ -50,10 +57,12 @@ def conv_tile_bf16(M: int, O: int) -> tuple[int, int]:
     warpgroup per 64 pixels: 64 channels where O ≤ 64, and 64 pixels
     where 128-pixel tiles would leave some of the 132 SMs without a block,
     so the bench's M 8192 × O 128 gets 128 blocks of 64 × 128 (not 64 of
-    128 × 128).  It is the f32 rule: on an H100 it beat every fixed tile
-    over a ResNet-50 forward at bs 128 (2.05–2.09 ms against 2.21–2.72;
+    128 × 128).  On an H100 it beat every fixed tile over a ResNet-50
+    forward at bs 128 (2.05–2.09 ms against 2.21–2.72;
     ``scripts/conv_mm_variants.py``, PERF.md §6)."""
-    return conv_tile(M, O)
+    bn = 64 if O <= 64 else 128
+    bm = 128 if -(-M // 128) * -(-O // bn) >= NUM_SMS else 64
+    return bm, bn
 
 
 def _is_bf16(dtype) -> bool:
@@ -66,14 +75,14 @@ def tile_for(M: int, O: int, dtype) -> tuple[int, int]:
 
 
 def smem_bytes(bm: int, bn: int, dtype) -> int:
-    """Shared memory of one block of the CUDA kernel: for f32 a ring of 3
-    stages of a bm × 16 A tile and a 16 × bn B tile, f32; for bf16 1024
-    bytes of alignment slack and a ring of 4 stages of a bm × 64 A tile
-    and a 64 × bn B tile, bf16.  The kernel computes the same number
-    (``conv_mm_smem_bytes``)."""
-    if _is_bf16(dtype):
-        return _ALIGN16 + 2 * _STAGES16 * _BK16 * (bm + bn)
-    return 4 * _STAGES * _BK * (bm + bn)
+    """Shared memory of one block of the CUDA kernel: 1024 bytes of
+    alignment slack and a ring of 4 stages, each a bm-row A tile and a
+    bn-wide w tile of one 128-byte row a depth (bm × 64 and 64 × bn bf16,
+    or bm × 32 and 32 × bn f32); for f32 also two K-major pairs of the w
+    tile's hi and lo parts (bn × 32 f32 each).  The kernel computes the same
+    number (``conv_mm_smem_bytes``)."""
+    ring = _ALIGN + _STAGES * _ROW_BYTES * (bm + bn)
+    return ring if _is_bf16(dtype) else ring + 4 * _ROW_BYTES * bn
 
 
 _BLOCK_SEEDS = (8, 16, 32, 64, 128, 256, 512)

@@ -1,9 +1,12 @@
 // A functional CPU emulation of the CUDA features that the f32 flash
 // attention kernel (src/repro_torch/kernels/flash_attention/csrc/
-// flash_attention.cu) and the 3xTF32 paged decode kernel
-// (src/repro_torch/kernels/paged_decode/csrc/paged_decode.cu) use, so that
-// their sources, rewritten by tests/test_torch_flash_f32_emulated.py and
-// tests/test_torch_paged_decode_emulated.py, compile with g++ and run:
+// flash_attention.cu), the 3xTF32 paged decode kernel
+// (src/repro_torch/kernels/paged_decode/csrc/paged_decode.cu) and the
+// 3xTF32 convolution kernel (src/repro_torch/kernels/conv_mm/csrc/
+// conv_mm.cu) use, so that their sources, rewritten by
+// tests/test_torch_flash_f32_emulated.py,
+// tests/test_torch_paged_decode_emulated.py and
+// tests/test_torch_conv_mm_f32_emulated.py, compile with g++ and run:
 // one OS thread per CUDA thread, a block at a time; __syncthreads is a
 // barrier of the block; a warp-wide instruction (ldmatrix, also .trans on
 // 16-bit elements, mma.sync, __shfl_xor_sync) gathers the operands of its
@@ -11,7 +14,8 @@
 // the result; wgmma (m64nNk8 TF32, A from registers, B through a
 // 128-byte-swizzle descriptor) does the same over the 128 lanes of its
 // warpgroup and completes at once (its fences, commits and waits compile
-// to nothing).  cp.async copies at once (its wait is then a no-op).
+// to nothing).  cp.async (16 or 4 bytes, zero fill) copies at once (its
+// wait is then a no-op).
 // mma.sync and wgmma read the TF32 part of their operands (low 13 mantissa
 // bits cleared), form exact products and sum them in f32.  bf16 values
 // convert as on the card (round to nearest even); the bf16 tensor-core
@@ -50,6 +54,7 @@ struct dim3 {
 struct emu_uint3 { unsigned x, y, z; };
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
@@ -75,6 +80,8 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   if ((u & 0x7fffffffu) > 0x7f800000u) return {static_cast<unsigned short>((u >> 16) | 0x40)};
   return {static_cast<unsigned short>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16)};
 }
+inline __nv_bfloat16 __float2bfloat16(float f) { return __float2bfloat16_rn(f); }
+inline __nv_bfloat162 __halves2bfloat162(__nv_bfloat16 a, __nv_bfloat16 b) { return {a, b}; }
 inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(unsigned(b.x) << 16); }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
@@ -133,6 +140,11 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
 inline void emu_cp_async16(uint32_t dst, const void* src, int src_bytes) {
   if (src_bytes) memcpy(emu_smem() + dst, src, 16);
   else memset(emu_smem() + dst, 0, 16);
+}
+
+inline void emu_cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  if (src_bytes) memcpy(emu_smem() + dst, src, 4);
+  else memset(emu_smem() + dst, 0, 4);
 }
 
 // ldmatrix .x4 .b16 on 32-bit elements: lane l gets word l % 4 of row
@@ -198,9 +210,11 @@ inline void emu_mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uin
 }
 
 // wgmma.mma_async m64nNk8 .f32.tf32.tf32, A from registers, B K-major from
-// shared memory through a descriptor (128-byte swizzle): d += a b
+// shared memory through a descriptor (128-byte swizzle): d = a b + (scale_d
+// ? d : 0)
 template <int N>
-inline void emu_wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc) {
+inline void emu_wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc,
+                              int scale_d = 1) {
   EmuWarpgroup& w = *emu_block->groups[threadIdx.x / 128];
   const int l = threadIdx.x % 128;
   for (int i = 0; i < 4; ++i) w.lane[l][i] = a[i];
@@ -237,7 +251,7 @@ inline void emu_wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_
   for (int j = 0; j < N / 8; ++j)
     for (int e = 0; e < 4; ++e) {
       const int r = wr + g + (e >= 2 ? 8 : 0), c = 8 * j + 2 * t + (e & 1);
-      float s = D[r][c];
+      float s = scale_d ? D[r][c] : 0.f;
       for (int k = 0; k < 8; ++k) s += A[r][k] * B[k][c];
       d[4 * j + e] = s;
     }

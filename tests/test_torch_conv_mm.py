@@ -133,20 +133,27 @@ def test_tiling_matches_reference(spec):
 
 
 @pytest.mark.parametrize("M,O,tile", [
-    (128 * 32 * 32, 64, (128, 64)),     # bs 128, 32x32, O 64: the stem
-    (128 * 4 * 4, 512, (64, 128)),      # bs 128, the 4x4 stage: 64 tiles of 128
+    (128 * 32 * 32, 64, (64, 64)),      # bs 128, 32x32, O 64: the stem
+    (128 * 4 * 4, 512, (64, 64)),       # bs 128, the 4x4 stage: 64 tiles of 128
     (128 * 4 * 4, 2048, (128, 128)),    # 256 tiles of 128 x 128
+    (128 * 8 * 8, 256, (128, 128)),     # bs 128, the 8x8 stage: 128 tiles
     (2 * 32 * 32, 64, (64, 64)),        # bs 2
     (132 * 128, 128, (128, 128)),       # exactly one 128 x 128 tile per SM
-    (131 * 128, 128, (64, 128)),        # one SM short
-    (131 * 128, 65, (64, 128)),         # O 65 takes the 128-wide tile
+    (133 * 64, 128, (128, 128)),        # 266 tiles of 64 x 64: a second wave
+    (132 * 64, 128, (64, 64)),          # 264: one wave of two an SM
+    (131 * 128, 65, (128, 128)),        # O 65 takes the 128-wide tile
+    (8 * 32 * 32, 128, (64, 64)),       # the bench shape in f32: 64 tiles of 128
+    (3 * 7 * 5, 70, (64, 64)),          # chip_smoke's O 70 edge case
     (1, 1, (64, 64)),
 ])
 def test_conv_tile_rule(M, O, tile):
-    """The f32 kernel's tile: 64 channels where O <= 64, 64 pixels where
-    128-pixel tiles would leave some of the 132 SMs without a block."""
+    """The f32 (3xTF32 ``wgmma``) kernel's tile, one warpgroup per 64
+    pixels: 128 x 128 where O > 64 and the 64 x 64 grid has more than two
+    blocks for each of the 132 SMs, else 64 x 64; ``tile_for`` picks it for
+    f32."""
     assert tiling.NUM_SMS == 132
     assert tiling.conv_tile(M, O) == tile
+    assert tiling.tile_for(M, O, torch.float32) == tiling.tile_for(M, O, "float32") == tile
 
 
 # the bf16 (wgmma) kernel's tile, BM pixels (one warpgroup per 64) by BN
@@ -188,22 +195,40 @@ def test_every_bf16_tile_fits_a_block_s_shared_memory(O):
         assert tiling.smem_bytes(bm, bn, "bfloat16") <= 232448
 
 
+@pytest.mark.parametrize("O", [1, 3, 8, 13, 64, 65, 70, 128, 256, 512, 2048])
+def test_every_f32_tile_fits_a_block_s_shared_memory(O):
+    """Every tile the f32 rule gives is one the 3xTF32 kernel instantiates
+    and fits the 232,448 bytes of shared memory a Hopper block may take,
+    the largest (128 x 128, 197,632 bytes) included."""
+    for M in (1, 64, 105, 2048, 8192, 16384, 16896, 131072, 2**24):
+        bm, bn = tiling.conv_tile(M, O)
+        assert (bm, bn) in ((64, 64), (128, 128))
+        assert tiling.smem_bytes(bm, bn, "float32") <= 232448
+    assert tiling.smem_bytes(128, 128, "float32") == 197632
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("tile", [(64, 64), (64, 128), (128, 64), (128, 128)])
 def test_smem_bytes_formula(tile, dtype):
     """Shared memory of one block of the CUDA kernel (``conv_mm_smem_bytes``
-    in the source): f32, a ring of 3 stages of a bm x 16 A tile and a
-    16 x bn B tile, f32; bf16, 1024 bytes of alignment slack and a ring of
-    4 stages of a bm x 64 A tile and a 64 x bn B tile, bf16.  ``cost``
-    reports the tile the dtype's rule gives."""
+    in the source): 1024 bytes of alignment slack and a ring of 4 stages;
+    f32, each stage a bm x 32 A tile and a 32 x bn w tile, f32, and two
+    K-major [hi | lo] pairs of bn x 32 f32; bf16, each stage a bm x 64 A
+    tile and a 64 x bn B tile, bf16.  ``cost`` reports the tile the dtype's
+    rule gives."""
     bm, bn = tile
-    want = (4 * 3 * 16 * (bm + bn) if dtype == "float32"
+    want = (1024 + 4 * 4 * 32 * (bm + bn) + 2 * 2 * 4 * 32 * bn if dtype == "float32"
             else 1024 + 2 * 4 * 64 * (bm + bn))
     assert tiling.smem_bytes(bm, bn, dtype) == want
     assert tiling.smem_bytes(bm, bn, TORCH_DT[dtype]) == want
-    # a shape the rule gives this tile: N x 32 x 32 pixels, O channels
+    # a shape the rule gives this tile: N x 32 x 32 pixels, O channels; the
+    # f32 rule gives 64 x 64 and 128 x 128 only, the f32 kernel's only tiles
     N = 128 if bm == 128 else 2
     O = 64 if bn == 64 else 256
+    if dtype == "float32" and bm != bn:
+        assert all(tiling.tile_for(n * 32 * 32, o, dtype) != tile
+                   for n in (1, 2, 8, 32, 128, 256) for o in (8, 64, 65, 256, 2048))
+        return
     shape = tiling.shape_key((N, 32, 32, 64), (3, 3, 64, O), stride=1, padding=1,
                              dtype=TORCH_DT[dtype])
     assert tiling.tile_for(N * 32 * 32, O, dtype) == tile
