@@ -1,0 +1,14 @@
+"""The share of the traced window in which no operation ran on the
+device: 1 - busy seconds / window seconds, both of the same traced
+steps."""
+
+UNIT = "%"
+BETTER = "lower"
+MOVES = "images_per_s"
+
+
+def read(ctx):
+    t = ctx.trace
+    if t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
