@@ -137,8 +137,7 @@ Phases (any failure raises and the script exits non-zero):
    with the convolution kernel's launch count read around the grid, then
    the kernel held against its plain version at every (batch size,
    convolution shape) the grid gave it; the predictor fitted on the
-   train points and its Γ/Φ error printed for each test grid; and a
-   traced step at batch 128 (where the time goes);
+   train points and its Γ/Φ error printed for each test grid;
 9. engine — paper §6.4 through the cost engine: an analytical spec of
    this card calibrated on the cnn phase's train grid (every workload
    from the cnn phase's cache, none profiled) and the tuner's timed
@@ -3240,60 +3239,10 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
             "forest": model, "cache": str(path), "train_grid": grids["train random"]}
 
 
-def cnn_step_breakdown(bs: int = 128, n_steps: int = 5) -> None:
-    """Where one full-width ResNet-50 training step's time goes at bs 128:
-    ``n_steps`` steps on the host clock, then ``n_steps`` more traced with
-    ``torch.profiler`` for the kernels' own time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.convert import cnn_params_from_numpy, tree_map
-    from repro_torch.core.profiler import make_train_step
-    from repro_torch.models.cnn import build_resnet50
-
-    model = build_resnet50(width_mult=1.0, input_hw=32)
-    params = cnn_params_from_numpy(model.init(0), device="cuda")
-    mom = tree_map(torch.zeros_like, params)
-    rng = np.random.default_rng(0)
-    x = torch.tensor(rng.normal(size=(bs, 32, 32, 3)).astype(np.float32), device="cuda")
-    y = torch.tensor(rng.integers(0, 100, size=(bs,)).astype(np.int32), device="cuda")
-    step = make_train_step(model)
-    for _ in range(2):
-        step(params, mom, x, y)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        step(params, mom, x, y)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            step(params, mom, x, y)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = {e.key: e.self_device_time_total / 1e3 / n_steps
-               for e in events if e.device_type == DeviceType.CUDA}
-    dev_ms = sum(kernels.values())
-    conv = sum(t for k, t in kernels.items() if re.search(r"conv_mm_\w+_kernel", k))
-    bwd = sum(e.device_time_total for e in events
-              if e.key == "aten::convolution_backward") / 1e3 / n_steps
-    if not dev_ms > 0:
-        raise AssertionError("the profiler saw no device time")
-    print(f"cnn step ResNet-50 width 1.0 32x32 bs {bs}: host wall {wall_ms:.2f} ms/step, "
-          f"device kernel time {dev_ms:.2f} ms/step (device idle {1 - dev_ms / wall_ms:.1%}); "
-          f"conv_mm {conv:.2f} ms ({conv / dev_ms:.1%}), convolution backward "
-          f"(cuDNN) {bwd:.2f} ms ({bwd / dev_ms:.1%}), the rest "
-          f"{dev_ms - conv - bwd:.2f} ms ({(dev_ms - conv - bwd) / dev_ms:.1%})")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    print("cnn step top kernels (ms/step): " + "; ".join(f"{k[:70]} {t:.3f}" for k, t in top))
-
-
 def cnn_phase() -> dict:
     t0 = time.perf_counter()
     cnn_step_check()
     result = cnn_toolflow()
-    cnn_step_breakdown()
     print(f"cnn phase done in {time.perf_counter() - t0:.1f} s")
     return result
 

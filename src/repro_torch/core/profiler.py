@@ -85,6 +85,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.convert import cnn_params_from_numpy, tree_leaves, tree_map
 from repro_torch.core.hlo_cost import _ALLOC, _DTENSOR, _fake
+from repro_torch.core.spans import span
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import CNNModel
 
@@ -124,24 +125,27 @@ def make_train_step(model: CNNModel, lr: float = 0.01, momentum: float = 0.9):
         return -logp.gather(1, y.long()[:, None]).mean()
 
     def step(params, mom, x, y):
-        leaves, moms = tree_leaves(params), tree_leaves(mom)
-        with torch.enable_grad():
-            for p in leaves:
-                p.requires_grad_(True)
-            loss = loss_fn(params, x, y)
-            grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
-            torch._foreach_mul_(moms, momentum)
-            torch._foreach_add_(moms, grads)
-            torch._foreach_add_(leaves, moms, alpha=-lr)
-        return params, mom, loss.detach()
+        with span("repro.step"):
+            leaves, moms = tree_leaves(params), tree_leaves(mom)
+            with torch.enable_grad():
+                for p in leaves:
+                    p.requires_grad_(True)
+                with span("repro.step.forward"):
+                    loss = loss_fn(params, x, y)
+                with span("repro.step.backward"):
+                    grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad(), span("repro.step.update"):
+                torch._foreach_mul_(moms, momentum)
+                torch._foreach_add_(moms, grads)
+                torch._foreach_add_(leaves, moms, alpha=-lr)
+            return params, mom, loss.detach()
 
     return step
 
 
 def make_infer_fn(model: CNNModel):
     def infer(params, x):
-        with torch.no_grad():
+        with span("repro.step"), torch.no_grad():
             return model.apply(params, x)
 
     return infer

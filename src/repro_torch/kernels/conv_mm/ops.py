@@ -25,6 +25,8 @@ import contextlib
 
 import torch
 
+from repro_torch.core.spans import span
+
 from .kernel import conv_mm_cuda
 from .ref import conv_ref
 
@@ -52,16 +54,17 @@ def conv_backward(gy, x, w, *, stride: int, padding: int, groups: int = 1,
     layout cuDNN prefers.  On the CPU every operand is copied to a plain
     contiguous NCHW/OIHW tensor first: the CPU convolution backward
     corrupts the heap on some channels-last operands."""
-    gy, x, w = gy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-    if gy.device.type == "cpu":
-        gy, x = gy.contiguous(), x.contiguous()
-    with fp32_convolutions():
-        dx, dw, _ = torch.ops.aten.convolution_backward(
-            gy, x, w.contiguous(), None, [stride, stride],
-            [padding, padding], [1, 1], False, [0, 0], groups,
-            [bool(needs[0]), bool(needs[1]), False])
-    return (dx.permute(0, 2, 3, 1) if dx is not None else None,
-            dw.permute(2, 3, 1, 0) if dw is not None else None)
+    with span("repro.conv_backward"):
+        gy, x, w = gy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        if gy.device.type == "cpu":
+            gy, x = gy.contiguous(), x.contiguous()
+        with fp32_convolutions():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w.contiguous(), None, [stride, stride],
+                [padding, padding], [1, 1], False, [0, 0], groups,
+                [bool(needs[0]), bool(needs[1]), False])
+        return (dx.permute(0, 2, 3, 1) if dx is not None else None,
+                dw.permute(2, 3, 1, 0) if dw is not None else None)
 
 
 def _forward(x, w, stride, padding):
@@ -92,4 +95,5 @@ class _ConvMM(torch.autograd.Function):
 def conv_mm(x, w, *, stride: int = 1, padding: int = 0, block_o=None):
     """x: (N, H, W, C) NHWC; w: (KH, KW, C, O) HWIO → (N, OH, OW, O) in
     x's dtype, differentiable in x and w."""
-    return _ConvMM.apply(x, w, int(stride), int(padding))
+    with span("repro.conv_mm"):
+        return _ConvMM.apply(x, w, int(stride), int(padding))

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.features import ConvLayerSpec, NetworkSpec
+from repro_torch.core.spans import span
 from repro_torch.kernels.conv_mm.ops import conv_backward, conv_mm, fp32_convolutions
 
 __all__ = [
@@ -168,10 +169,11 @@ class C(Node):
         if self.bias:
             y = y + params["b"]
         if self.bn:
-            mu = y.mean(dim=(0, 1, 2), keepdim=True)
-            var = y.var(dim=(0, 1, 2), unbiased=False, keepdim=True)
-            y = (y - mu) * torch.rsqrt(var + 1e-5)
-            y = y * params["scale"] + params["shift"]
+            with span("repro.bn"):
+                mu = y.mean(dim=(0, 1, 2), keepdim=True)
+                var = y.var(dim=(0, 1, 2), unbiased=False, keepdim=True)
+                y = (y - mu) * torch.rsqrt(var + 1e-5)
+                y = y * params["scale"] + params["shift"]
         return _act(y, self.act)
 
 
