@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits non-zero):
    one ``nvcc`` per kernel, all started together (→ ``build/repro_torch/``);
    print ``-Xptxas -v`` (registers, spills) for each kernel instantiation
    and the count of tensor-core instructions (HGMMA, HMMA) in the SASS
-   (``cuobjdump -sass``) of all four libraries, none of which may be 0
+   (``cuobjdump -sass``) of the four tensor-core libraries (all but
+   ``batchnorm``, whose kernels are memory-bound), none of which may be 0
    (``conv_mm``: HGMMA, its ``wgmma`` kernels), and of each f32 flash
    instantiation on its own (HGMMA and HMMA, no spills), of each 3xTF32
    paged decode instantiation (HMMA, no spills) and of each 3xTF32
@@ -44,7 +45,13 @@ Phases (any failure raises and the script exits non-zero):
    library yardstick and the bound with CUDA events (paged decode also at
    each token tile and split, and in f32 and f32 q over bf16 pools at each
    tile and split beside gather + SDPA in f32; flash also in f32, against
-   the CUDA-core and the 3xTF32 tensor-core bound);
+   the CUDA-core and the 3xTF32 tensor-core bound); the BatchNorm +
+   activation kernels at two ResNet-50 bs-256 shapes, forward and backward
+   against the plain formula, timed against their algorithm's 3 and 5
+   passes over the tensor and the function's floor of 2 and 3, beside
+   ``F.batch_norm``'s forward and forward + backward, and one ResNet-50
+   training step whose 53 BatchNorms each launch the kernels forward and
+   backward, none the plain formula (``bn_kernel_phase``);
 5. serve — first, while the served weights are drawn on the host and
    before they reach the card (so that which cells run out of memory does
    not depend on them), the campaign
@@ -134,7 +141,8 @@ Phases (any failure raises and the script exits non-zero):
    on the card against the CPU; then full-width ResNet-50 (32x32,
    CIFAR-100) pruned, profiled for Γ and Φ over the paper's train levels
    and the default test levels at five batch sizes (``collect_grid``),
-   with the convolution kernel's launch count read around the grid, then
+   with the convolution kernel's and the BatchNorm kernels' launch counts
+   (forward and backward) read around the grid and held, then
    the kernel held against its plain version at every (batch size,
    convolution shape) the grid gave it; the predictor fitted on the
    train points and its Γ/Φ error printed for each test grid;
@@ -150,12 +158,14 @@ Phases (any failure raises and the script exits non-zero):
    measurements (the Table 2 runner's ``budget_tiers``); each winner
    measured through the engine (model-only queries, answered by the
    profiler); tier A repeated (same result, no new miss); the convolution
-   kernel's launch count read around the phase;
+   kernel's and the BatchNorm kernels' launch counts read around the phase
+   and held;
 10. bench — two paper runners of ``repro_torch.bench`` at full width: the
    §6.2.1 DNNMem comparison over the cnn phase's cache (0 profiled, 0
    convolution kernel launches) and the §6.2 strategy variation on a fresh
-   cache (the MobileNetV2 train grid and 8 strategies profiled, the kernel's
-   launches held to the expected count), each gated on the datapoints and
+   cache (the MobileNetV2 train grid and 8 strategies profiled, the
+   convolution kernel's and the BatchNorm kernels' launches held to the
+   expected counts), each gated on the datapoints and
    launches its runner reports; their CSV lines; then the kernel held
    against its plain version at every (batch size, convolution shape) the
    strategies run gave it and at every one the full paper set
@@ -224,7 +234,9 @@ Phases (any failure raises and the script exits non-zero):
    ``moe_*``, the admit phase's ``admit_*``, the campaign phase's
    ``campaign_*`` and the benches phase's ``serve_bench_*`` numbers, SSD
    with its ``serve_launches``, each with ``kernel_bench_launches`` and
-   ``kernel_bench_ms`` from its ``card_us`` row), the card line again, and
+   ``kernel_bench_ms`` from its ``card_us`` row but batchnorm, whose
+   ``launches`` and ``backward_launches`` are the cnn grid's, beside the
+   engine's, the bench's and the ResNet-50 step's), the card line again, and
    last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it fails
@@ -264,6 +276,7 @@ REPLACES = "src/repro/kernels/paged_decode/kernel.py:120"
 CONV_REPLACES = "src/repro/kernels/conv_mm/kernel.py:57"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:66"
 SSD_REPLACES = "src/repro/kernels/ssm_scan/kernel.py:57"
+BN_REPLACES = "none (the reference's BatchNorm runs through XLA)"
 # flash attention against its plain version: bf16 outputs may round to
 # either neighbour of the same f32 value (one ulp at |o| < 2 is <= 2^-7);
 # f32 sums in another order stay far inside 1e-4
@@ -2866,6 +2879,19 @@ def conv_nodes(model) -> list:
     """((H, W, C) of the input, node) for every groups = 1 convolution of
     the model's graph, in the order ``apply`` runs them (Dense layers and
     depthwise convolutions do not go through the kernel)."""
+    return [(s, node) for s, node in c_nodes(model) if not node.depthwise]
+
+
+def bn_count(model) -> int:
+    """The BatchNorms of the model's graph (every ``C`` with ``bn``): the
+    BatchNorm kernels' forward launches in one step on the card, and their
+    backward launches in one training step."""
+    return sum(node.bn for _, node in c_nodes(model))
+
+
+def c_nodes(model) -> list:
+    """((H, W, C) of the input, node) for every ``C`` of the model's graph,
+    in the order ``apply`` runs them."""
     from repro_torch.models import cnn
 
     found = []
@@ -2883,7 +2909,7 @@ def conv_nodes(model) -> list:
         if isinstance(node, cnn.Concat):
             for b in node.branches:
                 walk(b, s)
-        elif isinstance(node, cnn.C) and not node.depthwise:
+        elif isinstance(node, cnn.C):
             found.append((s, node))
         return node.out_shape(s)
 
@@ -3091,6 +3117,165 @@ def conv_kernel_phase(flush) -> dict:
     return out
 
 
+# BatchNorm + activation at two ResNet-50 bs-256 shapes: stage 1's first
+# (the largest M) and stage 4's last (the largest C)
+BN_SHAPES = (((256, 32, 32, 64), "relu"), ((256, 4, 4, 2048), "none"))
+# f32 sums over up to 262,144 rows in another order than float64's
+BN_TOL = 1e-4
+
+
+def bn_check(y, scale, shift, dz, act: str) -> dict:
+    """The BatchNorm kernels' forward and backward against the plain
+    formula on the same card inputs: z against the formula of the kernels'
+    own mean and rstd, which it equals to the bit; mean, rstd, the two sums
+    and dy against float64, dz masked where the kernels' p says (p within
+    rounding of 0 or 6 may fall on either side).  Returns the relative
+    errors; raises outside ``BN_TOL``."""
+    import torch
+
+    from repro_torch.kernels.batchnorm.kernel import batchnorm_cuda
+    from repro_torch.kernels.batchnorm.ref import (activation, batchnorm_act_backward_ref,
+                                                   batchnorm_act_forward_ref)
+
+    z, mean, rstd = batchnorm_cuda.forward(y, scale, shift, act)
+    dy, dscale, dshift = batchnorm_cuda.backward(dz, y, scale, shift, mean, rstd, act)
+    p = ((y - mean) * rstd) * scale + shift
+    if not torch.equal(z, activation(p, act)):
+        raise AssertionError(f"batchnorm z is not the formula of its mean and rstd at "
+                             f"{tuple(y.shape)} {act}")
+    keep = {"relu": p > 0, "relu6": (p > 0) & (p < 6), "none": torch.ones_like(p, dtype=bool)}
+    y64, scale64, shift64 = y.double(), scale.double(), shift.double()
+    _, mean64, rstd64 = batchnorm_act_forward_ref(y64, scale64, shift64, act)
+    dy64, dscale64, dshift64 = batchnorm_act_backward_ref(
+        torch.where(keep[act], dz.double(), 0.0), y64, scale64, shift64, mean64, rstd64,
+        "none")
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    errs = {"mean": float((mean.double() - mean64).abs().max() * rstd64.max()),
+            "rstd": rel(rstd, rstd64), "dshift": rel(dshift, dshift64),
+            "dscale": rel(dscale, dscale64), "dy": rel(dy, dy64)}
+    if not max(errs.values()) <= BN_TOL:
+        raise AssertionError(f"batchnorm kernels off the plain formula at {tuple(y.shape)} "
+                             f"{act}: {errs}")
+    return errs
+
+
+def bn_kernel_phase(flush) -> dict:
+    """The BatchNorm + activation kernels at ``BN_SHAPES``: checked by
+    :func:`bn_check`, then timed (L2 flushed before each call) forward (3
+    kernels) and backward (3 kernels).  Each direction is held against two
+    byte counts at 3.35 TB/s: the passes of the kernels' algorithm (forward
+    3: read y for the statistics, read it again, write z; backward 5: read
+    dz and y for the sums, read both again, write dy) and the function's
+    floor (forward 2: read y, write z; backward 3: read dz and y, write
+    dy).  Beside them the plain formula (eager, forward alone and forward +
+    backward under autograd) and ``F.batch_norm`` + the activation on a
+    channels-last view (the library yardstick, never called by the port),
+    forward alone and forward + backward.  Then one full-width ResNet-50
+    training step (bs 32), whose 53 BatchNorms must each launch the
+    kernels once forward and once backward, and call the plain formula
+    never (:func:`check_bn_launches`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.convert import cnn_params_from_numpy, tree_map
+    from repro_torch.core.profiler import make_train_step
+    from repro_torch.kernels.batchnorm.kernel import batchnorm_cuda
+    from repro_torch.kernels.batchnorm.ops import batchnorm_calls
+    from repro_torch.kernels.batchnorm.ref import activation, batchnorm_act_ref
+    from repro_torch.models.cnn import build_resnet50
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out: dict = {}
+    for (N, H, W, C), act in BN_SHAPES:
+        y = torch.randn(N, H, W, C, generator=gen, device="cuda") * 2.0 + 0.5
+        dz = torch.randn(N, H, W, C, generator=gen, device="cuda")
+        scale = torch.rand(C, generator=gen, device="cuda") * 3.5 + 0.5
+        shift = torch.randn(C, generator=gen, device="cuda") * 2.0
+        errs = bn_check(y, scale, shift, dz, act)
+        z, mean, rstd = batchnorm_cuda.forward(y, scale, shift, act)
+        fwd = time_ms(lambda: batchnorm_cuda.forward(y, scale, shift, act), flush)
+        bwd = time_ms(lambda: batchnorm_cuda.backward(dz, y, scale, shift, mean, rstd, act),
+                      flush)
+        with torch.no_grad():
+            plain_fwd = time_ms(lambda: batchnorm_act_ref(y, scale, shift, act), flush)
+            library = time_ms(lambda: activation(F.batch_norm(
+                y.permute(0, 3, 1, 2), None, None, scale, shift, training=True, eps=1e-5),
+                act), flush)
+        leaves = [t.clone().requires_grad_(True) for t in (y, scale, shift)]
+
+        def plain_step():
+            torch.autograd.grad(batchnorm_act_ref(*leaves, act), leaves, dz)
+
+        def library_step():
+            yg, sg, bg = leaves
+            zg = activation(F.batch_norm(yg.permute(0, 3, 1, 2), None, None, sg, bg,
+                                         training=True, eps=1e-5), act)
+            torch.autograd.grad(zg, leaves, dz.permute(0, 3, 1, 2))
+
+        plain_both = time_ms(plain_step, flush)
+        library_both = time_ms(library_step, flush)
+        pass_ms = 4 * y.numel() / HBM_BYTES_PER_S * 1e3      # one f32 pass over y
+        bounds = {"forward": (fwd, 3 * pass_ms, 2 * pass_ms),
+                  "backward": (bwd, 5 * pass_ms, 3 * pass_ms)}
+        key = f"{N}x{H}x{W}x{C}_{act}"
+        print(f"timing batchnorm {key}: max rel err vs plain "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + "; " + "; ".join(
+                  f"{d} {ms:.4f} ms (algorithm {algo:.4f} ms, {algo / pass_ms:.0f} passes "
+                  f"-> {algo / ms:.1%}; floor {floor:.4f} ms, {floor / pass_ms:.0f} passes "
+                  f"-> {floor / ms:.1%})" for d, (ms, algo, floor) in bounds.items())
+              + f"; plain forward {plain_fwd:.4f} ms, forward + backward {plain_both:.4f} ms; "
+              f"F.batch_norm + {act} forward {library:.4f} ms, forward + backward "
+              f"{library_both:.4f} ms (kernels {fwd + bwd:.4f} ms)")
+        for d, (ms, algo, floor) in bounds.items():
+            out.update({f"{key}_{d}_ms": ms, f"{key}_{d}_bound_ms": algo,
+                        f"{key}_{d}_floor_ms": floor})
+        out.update({f"{key}_plain_forward_ms": plain_fwd,
+                    f"{key}_plain_forward_backward_ms": plain_both,
+                    f"{key}_library_forward_ms": library,
+                    f"{key}_library_forward_backward_ms": library_both,
+                    f"{key}_max_rel_err": max(errs.values())})
+        del y, dz, z, leaves
+
+    model = build_resnet50(width_mult=1.0, input_hw=32)
+    params = cnn_params_from_numpy(model.init(0), device="cuda")
+    mom = tree_map(torch.zeros_like, params)
+    x = torch.randn(32, 32, 32, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 100, (32,), generator=gen, device="cuda")
+    start = batchnorm_calls()
+    make_train_step(model)(params, mom, x, labels)
+    torch.cuda.synchronize()
+    n_bn = bn_count(model)
+    step = check_bn_launches("one ResNet-50 training step (bs 32)", start, n_bn, n_bn, 0)
+    print(f"batchnorm step: {step['kernel'] / (step['kernel'] + step['plain']):.0%} of its "
+          f"BatchNorms on the kernels; batchnorm phase done in {time.perf_counter() - t0:.1f} s")
+    out.update(step_forward_launches=step["kernel"],
+               step_backward_launches=step["kernel_backward"], step_plain_calls=step["plain"])
+    return out
+
+
+def check_bn_launches(label: str, start: dict, forward: int, backward: int,
+                      plain: int) -> dict:
+    """The BatchNorm counters (``batchnorm_calls()``) since ``start``:
+    the kernels' forward and backward launches must equal ``forward`` and
+    ``backward``, and the plain formula's calls (CPU and meta tensors)
+    ``plain``.  Prints and returns the counts."""
+    from repro_torch.kernels.batchnorm.ops import batchnorm_calls
+
+    now = batchnorm_calls()
+    got = {k: now[k] - start[k] for k in now}
+    want = {"kernel": forward, "kernel_backward": backward, "plain": plain}
+    print(f"{label}: batchnorm kernel launches forward {got['kernel']} (expected {forward}), "
+          f"backward {got['kernel_backward']} (expected {backward}); plain formula calls "
+          f"{got['plain']} (expected {plain})")
+    if got != want:
+        raise AssertionError(f"{label}: batchnorm counts {got}, expected {want}")
+    return got
+
+
 def cnn_step_check(seed: int = 0) -> dict:
     """One SGD-momentum step of a reduced ResNet-50 (width 0.25, 16x16,
     bs 8, weights and batch from ``seed``, zero momentum) on the card (the
@@ -3176,6 +3361,7 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
                                           DatasetCache, GridSpec, _build_pruned,
                                           collect_grid)
     from repro_torch.core.predictor import Perf4Sight
+    from repro_torch.kernels.batchnorm.ops import batchnorm_calls
     from repro_torch.kernels.conv_mm.kernel import conv_mm_cuda
 
     grids = {
@@ -3188,6 +3374,7 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
     n_convs = {key: len(conv_nodes(m)) for key, m in topologies.items()}
     steps = 2 + warmup + repeats          # profile_training's steps per datapoint
     expected = sum(n_convs.values()) * len(GRID_BS) * steps
+    n_bn = sum(map(bn_count, topologies.values())) * len(GRID_BS)   # a step of each profile
     path = ROOT / "build" / "repro_torch" / "cnn_profile_resnet50.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.unlink(missing_ok=True)          # a fresh cache: every point is profiled
@@ -3195,6 +3382,7 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
 
     torch.cuda.synchronize()
     conv_mm_cuda.launches = 0
+    bn_start = batchnorm_calls()
     window = TunerWindow()
     t0 = time.perf_counter()
     points = {name: collect_grid(spec, cache, repeats=repeats, warmup=warmup,
@@ -3212,6 +3400,10 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
           f"x {len(GRID_BS)} batch sizes x {steps} steps); cache {path.relative_to(ROOT)}")
     if launches != expected:
         raise AssertionError(f"conv_mm launches {launches} != {expected}")
+    # every step on the card, forward and backward; the plain formula only
+    # in each profile's flop count on meta tensors (one forward)
+    bn = check_bn_launches(f"cnn grid ({steps} steps a profile)", bn_start, n_bn * steps,
+                           n_bn * steps, n_bn)
     # the kernel against its plain version at every shape the grid gave it
     err = check_conv_pairs(topology_pairs(topologies.values(), GRID_BS),
                            f"every shape of the grid, {len(topologies)} topologies", 1)
@@ -3236,7 +3428,8 @@ def cnn_toolflow(repeats: int = 5, warmup: int = 2) -> dict:
         if not (np.isfinite(rep.gamma_mape) and np.isfinite(rep.phi_mape)):
             raise AssertionError("predictor errors are not finite")
     return {"launches": launches, "max_abs_err": err, "points": points,
-            "forest": model, "cache": str(path), "train_grid": grids["train random"]}
+            "forest": model, "cache": str(path), "train_grid": grids["train random"],
+            "bn_launches": bn}
 
 
 def cnn_phase() -> dict:
@@ -3304,6 +3497,7 @@ def engine_phase(cnn: dict) -> dict:
                                     calibrate, evaluate_accuracy, from_torch_device,
                                     measure_ground_truth)
     from repro_torch.kernels import autotune
+    from repro_torch.kernels.batchnorm.ops import batchnorm_calls
     from repro_torch.kernels.conv_mm.kernel import conv_mm_cuda
     from repro_torch.models.cnn import build_resnet50
 
@@ -3312,7 +3506,11 @@ def engine_phase(cnn: dict) -> dict:
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     conv_mm_cuda.launches = 0
+    bn_start = batchnorm_calls()
     expected = 0
+    # inference profiles run no backward; each profile's flop count runs
+    # one plain forward on meta tensors
+    bn_expected = {"forward": 0, "backward": 0, "plain": 0}
     window = TunerWindow()
 
     # 1. calibrate an analytical spec of this card on the cnn phase's grid
@@ -3361,6 +3559,7 @@ def engine_phase(cnn: dict) -> dict:
                                                     np.random.default_rng(2000 + i)),
                            input_hw=hw)
         net, steps = m.conv_specs(), len(conv_nodes(m)) * PROFILE_STEPS
+        bn_steps = bn_count(m) * PROFILE_STEPS
         for stage, bs in [("infer", b) for b in INFER_BS] + [("train", SEARCH_TRAIN_BS)]:
             prof = profile_inference if stage == "infer" else profile_training
             t = time.perf_counter()
@@ -3369,6 +3568,9 @@ def engine_phase(cnn: dict) -> dict:
                          "phi": res.phi_ms, "profile_s": time.perf_counter() - t,
                          "features": network_features(net, bs)})
             expected += steps
+            bn_expected["forward"] += bn_steps
+            bn_expected["backward"] += bn_steps if stage == "train" else 0
+            bn_expected["plain"] += bn_count(m)
             positive(f"sub-network {i} {stage} bs {bs}", res.gamma_mb, res.phi_ms)
     infer_rows = [r for r in rows if r["stage"] == "infer"]
     fit = [r for r in infer_rows if r["sub"] < N_TRAIN_SUB]
@@ -3461,12 +3663,15 @@ def engine_phase(cnn: dict) -> dict:
         qs = [CostQuery(model=m, bs=tier.train_bs, stage="train"),
               CostQuery(model=m, bs=tier.infer_bs, stage="infer")]
         est_t, est_i = engine.estimate(qs)
-        for e in (est_t, est_i):
+        for e, backward in ((est_t, True), (est_i, False)):
             if e.source != "profiler":
                 raise AssertionError(f"tier {name} winner answered by {e.source}")
             positive(f"tier {name} winner measured", e.gamma_mb, e.phi_ms)
             if not e.detail.get("cached"):
                 expected += len(conv_nodes(m)) * PROFILE_STEPS
+                bn_expected["forward"] += bn_count(m) * PROFILE_STEPS
+                bn_expected["backward"] += bn_count(m) * PROFILE_STEPS if backward else 0
+                bn_expected["plain"] += bn_count(m)
         meets = not (
             (tier.gamma_mb is not None and est_t.gamma_mb > tier.gamma_mb)
             or (tier.gamma_inf_mb is not None and est_i.gamma_mb > tier.gamma_inf_mb)
@@ -3503,7 +3708,9 @@ def engine_phase(cnn: dict) -> dict:
           f"done in {time.perf_counter() - t0:.1f} s")
     if launches != expected:
         raise AssertionError(f"engine phase conv_mm launches {launches} != {expected}")
-    return {"launches": launches}
+    bn = check_bn_launches("engine phase", bn_start, bn_expected["forward"],
+                           bn_expected["backward"], bn_expected["plain"])
+    return {"launches": launches, "bn_launches": bn}
 
 
 # ---------------------------------------------------------------------------
@@ -3527,6 +3734,7 @@ def bench_phase(cnn: dict) -> dict:
     from repro_torch.bench import common, dnnmem_comparison, strategy_variation
     from repro_torch.bench.collect_cnn_data import all_grids
     from repro_torch.core.dataset import DEFAULT_TRAIN_LEVELS, GridSpec, _build_pruned
+    from repro_torch.kernels.batchnorm.ops import batchnorm_calls
     from repro_torch.kernels.conv_mm.kernel import conv_mm_cuda
 
     geo = common.FULL
@@ -3546,7 +3754,9 @@ def bench_phase(cnn: dict) -> dict:
 
     torch.cuda.synchronize()
     conv_mm_cuda.launches = 0
+    bn_start = batchnorm_calls()
     err = dnnmem_comparison.run(out, cache_path=cnn["cache"], geometry=geo)
+    check_bn_launches("bench dnnmem", bn_start, 0, 0, 0)
     profiled, launches = tally("dnnmem")
     print(f"bench dnnmem over the cnn phase's cache {Path(cnn['cache']).relative_to(ROOT)}: "
           f"profiled {profiled}, conv_mm launches {launches} (both must be 0)")
@@ -3563,12 +3773,17 @@ def bench_phase(cnn: dict) -> dict:
     expected = steps * (len(geo.batch_sizes) * sum(len(conv_nodes(m)) for m in grid_models)
                         + sum(len(conv_nodes(m)) for m in models))
     n_points = len(grid.levels) * len(geo.batch_sizes) + len(models)
+    n_bn = (len(geo.batch_sizes) * sum(map(bn_count, grid_models))
+            + sum(map(bn_count, models)))                  # a step of each profile
     torch.cuda.synchronize()
     conv_mm_cuda.launches = 0
+    bn_start = batchnorm_calls()
     window = TunerWindow()
     res = strategy_variation.run(out, cache_path=str(path), geometry=geo)
     profiled, launches = tally("strategies")
     window.report("bench strategies")
+    bn = check_bn_launches(f"bench strategies ({steps} steps a profile)", bn_start,
+                           n_bn * steps, n_bn * steps, n_bn)
     print(f"bench strategies MobileNetV2 width {geo.width_mult} {geo.input_hw}x"
           f"{geo.input_hw}: {profiled} datapoints profiled (expected {n_points}: the "
           f"train grid, {len(grid.levels)} levels x batch sizes {list(geo.batch_sizes)}, "
@@ -3598,7 +3813,7 @@ def bench_phase(cnn: dict) -> dict:
                                         f"every shape of the paper set, {len(paper)} "
                                         "families", 3))
     print(f"bench phase done in {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches, "max_abs_err": worst}
+    return {"launches": launches, "max_abs_err": worst, "bn_launches": bn}
 
 
 # ---------------------------------------------------------------------------
@@ -4379,6 +4594,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from repro_torch.kernels.batchnorm import kernel as bn_kernel
     from repro_torch.kernels.conv_mm import kernel as conv_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.paged_decode import kernel as decode_kernel
@@ -4394,7 +4610,8 @@ def main() -> int:
     wrappers = {"paged_decode": (decode_kernel.paged_decode_cuda, decode_kernel.SOURCES),
                 "conv_mm": (conv_kernel.conv_mm_cuda, conv_kernel.SOURCES),
                 "flash_attention": (flash_kernel.flash_attention_cuda, flash_kernel.SOURCES),
-                "ssd_chunk": (ssd_kernel.ssd_chunk_cuda, ssd_kernel.SOURCES)}
+                "ssd_chunk": (ssd_kernel.ssd_chunk_cuda, ssd_kernel.SOURCES),
+                "batchnorm": (bn_kernel.batchnorm_cuda, bn_kernel.SOURCES)}
     with ThreadPoolExecutor(len(wrappers)) as pool:   # one nvcc each, together
         libs = list(pool.map(lambda w: w[0].load(), wrappers.values()))
     for (name, (wrapper, sources)), lib in zip(wrappers.items(), libs):
@@ -4408,8 +4625,11 @@ def main() -> int:
             f"{k} {regs} registers, {spill} bytes spilled" for k, regs, spill in ptxas_kernels(log)))
     # the tensor-core kernels: bf16 paged decode, flash (bf16 and f32) and
     # conv_mm, ssd_chunk (3xTF32); both conv_mm kernels are wgmma kernels
-    # (HGMMA); every f32 flash and conv_mm instantiation is held on its own
+    # (HGMMA); every f32 flash and conv_mm instantiation is held on its own;
+    # batchnorm's kernels are memory-bound and use none
     for name, lib in zip(wrappers, libs):
+        if name == "batchnorm":
+            continue
         mma = sass_mma_count(lib._name)
         if mma is None:
             print(f"build {name} SASS tensor-core instructions: not available (no cuobjdump)")
@@ -4444,6 +4664,7 @@ def main() -> int:
     conv_timing = conv_kernel_phase(flush)
     flash_timing = flash_kernel_phase(flush, tuned)
     ssd_timing = ssd_kernel_phase(flush, tuned)
+    bn_timing = bn_kernel_phase(flush)
     print(f"kernels phase done in {time.perf_counter() - t0:.1f} s (paged decode "
           f"{t1 - t0:.1f} s)")
     del flush
@@ -4535,6 +4756,18 @@ def main() -> int:
         **ssd_timing,
         "serve_launches": layered["serve_launches"],
         **kernel_bench_fields("ssd_chunk"),
+    }, {
+        "name": "batchnorm",
+        "route": "cuda",
+        "source": str(bn_kernel.SOURCES[0].relative_to(ROOT)),
+        "replaces": BN_REPLACES,
+        "launches": cnn["bn_launches"]["kernel"],
+        "backward_launches": cnn["bn_launches"]["kernel_backward"],
+        "engine_launches": engine["bn_launches"]["kernel"],
+        "engine_backward_launches": engine["bn_launches"]["kernel_backward"],
+        "bench_launches": bench["bn_launches"]["kernel"],
+        "bench_backward_launches": bench["bn_launches"]["kernel_backward"],
+        **bn_timing,
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"device {card_line()}")

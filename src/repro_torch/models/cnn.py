@@ -23,7 +23,9 @@ draw, so one seed gives the same parameter dict (numpy arrays);
     ``conv_mm`` does not take groups;
   * BatchNorm uses batch statistics with the biased variance and eps 1e-5
     inside the rsqrt, and keeps no running statistics (training mode, the
-    profiled attribute);
+    profiled attribute); with its activation it goes through
+    ``kernels.batchnorm.batchnorm_act``: hand-written CUDA kernels forward
+    and backward on the card, the plain formula on the CPU;
   * max pooling pads with -inf and average pooling divides by the count
     of cells inside the image, as ``reduce_window`` does in the reference;
   * ``Dense`` flattens in NHWC order.
@@ -39,6 +41,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.features import ConvLayerSpec, NetworkSpec
 from repro_torch.core.spans import span
+from repro_torch.kernels.batchnorm.ops import batchnorm_act
+from repro_torch.kernels.batchnorm.ref import activation as _act
 from repro_torch.kernels.conv_mm.ops import conv_backward, conv_mm, fp32_convolutions
 
 __all__ = [
@@ -73,16 +77,6 @@ class Node:
 
     def apply(self, params, x):
         raise NotImplementedError
-
-
-def _act(x, kind: str):
-    if kind == "relu":
-        return torch.relu(x)
-    if kind == "relu6":
-        return torch.clamp(x, 0.0, 6.0)
-    if kind == "none":
-        return x
-    raise ValueError(kind)
 
 
 class _DepthwiseConv(torch.autograd.Function):
@@ -170,10 +164,7 @@ class C(Node):
             y = y + params["b"]
         if self.bn:
             with span("repro.bn"):
-                mu = y.mean(dim=(0, 1, 2), keepdim=True)
-                var = y.var(dim=(0, 1, 2), unbiased=False, keepdim=True)
-                y = (y - mu) * torch.rsqrt(var + 1e-5)
-                y = y * params["scale"] + params["shift"]
+                return batchnorm_act(y, params["scale"], params["shift"], self.act)
         return _act(y, self.act)
 
 

@@ -257,6 +257,7 @@ def test_new_modules_of_the_tuner_slice_are_covered():
         importlib.import_module(name)
     sources = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.cu")}
     assert sources == {"kernels/paged_decode/csrc/paged_decode.cu",
+                       "kernels/batchnorm/csrc/batchnorm.cu",
                        "kernels/conv_mm/csrc/conv_mm.cu",
                        "kernels/flash_attention/csrc/flash_attention.cu",
                        "kernels/ssm_scan/csrc/ssd_chunk.cu"}
