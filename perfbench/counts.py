@@ -3,12 +3,12 @@
 The benchmark's own arithmetic, kept apart from the program's counters so
 that a change to the program cannot move the yardstick.
 
-* A convolution's products: ``2 * N * OH * OW * O * KH * KW * C`` flops,
-  the same for the forward, the input gradient (dgrad) and the weight
-  gradient (wgrad).
+* A convolution's products: ``2 * N * OH * OW * O * KH * KW * C / groups``
+  flops, the same for the forward, the input gradient (dgrad) and the
+  weight gradient (wgrad).
 * Its bytes, each operand read once and the result written once: forward
   x, w read and y written; dgrad gy, w read and dx written; wgrad gy, x
-  read and dw written.
+  read and dw written; w holds ``KH * KW * C / groups * O`` numbers.
 * ``Dense``: ``2 * N * in * out`` flops for the forward and for each of
   its two gradients.
 * A training step has no dgrad for the stem (its input needs none).
@@ -36,10 +36,11 @@ class ConvCost:
 
 
 def _conv(c: Conv, n: int, kind: str, elt: int) -> ConvCost:
+    i = c.cin // c.groups
     x = n * c.h * c.w * c.cin
-    w = c.k * c.k * c.cin * c.cout
+    w = c.k * c.k * i * c.cout
     y = n * c.oh * c.ow * c.cout
-    flops = 2.0 * n * c.oh * c.ow * c.cout * c.k * c.k * c.cin
+    flops = 2.0 * n * c.oh * c.ow * c.cout * c.k * c.k * i
     moved = {"fwd": x + w + y, "dgrad": y + w + x, "wgrad": y + x + w}[kind]
     return ConvCost(c.name, kind, flops, float(moved * elt))
 
@@ -74,13 +75,21 @@ def bound_s(costs, peak_flops: float, peak_bytes: float) -> float:
 
 @dataclass(frozen=True)
 class StepCosts:
-    """What the per-layer readers price one step by: its flops, its
-    forward convolution passes and (training) its backward ones."""
+    """What the per-layer readers price one step by: its flops (every
+    pass); ``fwd``, the forward passes of the dense (groups = 1)
+    convolutions, which ``conv_mm`` runs; ``bwd``, every backward pass
+    (training), all of which run under ``aten::convolution_backward``; and
+    ``dw``, every pass of the grouped convolutions."""
     step_flops: float
     fwd: tuple[ConvCost, ...]
     bwd: tuple[ConvCost, ...] = ()
+    dw: tuple[ConvCost, ...] = ()
 
 
 def cnn_step_costs(p: Plan, n: int, train: bool) -> StepCosts:
-    return StepCosts(step_flops(p, n, train), tuple(conv_costs(p, n)),
-                     tuple(conv_costs(p, n, ("dgrad", "wgrad"))) if train else ())
+    grouped = {c.name for c in p.convs() if c.groups > 1}
+    costs = conv_costs(p, n, ("fwd", "dgrad", "wgrad") if train else ("fwd",))
+    return StepCosts(step_flops(p, n, train),
+                     tuple(c for c in costs if c.kind == "fwd" and c.name not in grouped),
+                     tuple(c for c in costs if c.kind != "fwd"),
+                     tuple(c for c in costs if c.name in grouped))

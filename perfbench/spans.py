@@ -9,9 +9,6 @@ benchmark reads them.
   operations in a ``torch.profiler`` trace, each given to the innermost
   ``repro.*`` span open on any host thread at its middle, or to
   ``"outside the program"``;
-* ``device_under(events, names)``: device seconds of the kernels launched
-  inside each named span or operator, without the kernels that the
-  profiler links to CUPTI's overhead events (below);
 * ``waited_share(events, name)``: the share of the named spans inside
   which a launch waited for room in the device's queue.
 
@@ -43,19 +40,13 @@ if __name__ == "__main__":
         sys.path.pop(0)
     sys.path[:0] = [str(HERE.parent / "src"), str(HERE.parent)]
 
-__all__ = ["PREFIX", "OUTSIDE", "OVERHEAD", "WAIT", "program_host_s", "idle_by_span",
-           "device_under", "waited_share", "main"]
+__all__ = ["PREFIX", "OUTSIDE", "WAIT", "program_host_s", "idle_by_span", "waited_share",
+           "main"]
 
 PREFIX = "repro."
 OUTSIDE = "outside the program"
-# CUPTI's overhead activities, which the profiler puts among the host's
-# events.  Such an event can carry the kernels of an unrelated operator
-# (its correlation id is drawn from another sequence than the operators'),
-# so counting them counts those kernels twice.
-OVERHEAD = frozenset({"Driver Compiler", "Buffer Flush", "Instrumentation", "Resource",
-                      "Runtime Triggered Module Loading", "Lazy Function Loading",
-                      "Command Buffer Full", "Activity Buffer Request", "UVM Activity Init"})
-WAIT = "Command Buffer Full"          # a launch that waited for room in the queue
+# a launch that waited for room in the queue (one of tracing.OVERHEAD)
+WAIT = "Command Buffer Full"
 
 
 def program_host_s(name: str) -> list[float]:
@@ -113,30 +104,6 @@ def idle_by_span(events) -> dict[str, float]:
 
 def _host(events):
     return [e for e in events if e.device_type.name == "CPU"]
-
-
-def _inside(e, name) -> bool:
-    p = e.cpu_parent
-    while p is not None:
-        if p.name == name:
-            return True
-        p = p.cpu_parent
-    return False
-
-
-def device_under(events, names) -> dict[str, float]:
-    """Device seconds under each of ``names`` (its outermost calls), the
-    overhead events' kernels left out."""
-    memo: dict[int, float] = {}
-
-    def dev(e) -> float:
-        if id(e) not in memo:
-            memo[id(e)] = 0.0 if e.name in OVERHEAD else (
-                sum(k.duration for k in e.kernels) * 1e-6 + sum(dev(c) for c in e.cpu_children))
-        return memo[id(e)]
-
-    host = _host(events)
-    return {n: sum(dev(e) for e in host if e.name == n and not _inside(e, n)) for n in names}
 
 
 def waited_share(events, name) -> float | None:
@@ -197,7 +164,6 @@ def main(argv=None) -> int:
     idle = idle_by_span(events)
     names = ("repro.step", "repro.step.forward", "repro.step.backward", "repro.step.update",
              "repro.conv_mm", "repro.conv_backward", "repro.bn")
-    clean = device_under(events, names + ("aten::convolution_backward",))
     waited = {n: waited_share(events, n) for n in ("repro.step", "repro.conv_mm", "repro.bn")}
     n_wait = sum(1 for e in _host(events) if e.name == WAIT)
     del events, prof
@@ -229,7 +195,6 @@ def main(argv=None) -> int:
             **{n: (summary.under(n) or 0.0) * per_step for n in names},
             "kernels named conv_mm_*": conv * per_step,
             "aten::convolution_backward": bwd * per_step},
-        "device_ms_per_step_without_overhead": {n: v * per_step for n, v in clean.items()},
         "host": host,
         "waited_share": waited,
         "waits_per_step": n_wait / steps,

@@ -15,23 +15,11 @@ import pytest
 import torch
 
 from perfbench import compare, faults
-from perfbench.entries import cnn_common
 from perfbench.run import run
 
 from .conftest import small_cell
 
 CELLS = ["resnet50-train-bs256", "resnet18-train-bs512", "resnet50-infer-bs512"]
-
-
-@pytest.fixture
-def float64(monkeypatch):
-    draw = cnn_common.draw_inputs
-
-    def draw64(*a, **k):
-        leaves, x, y = draw(*a, **k)
-        return [t.double() for t in leaves], x.double(), y
-
-    monkeypatch.setattr(cnn_common, "draw_inputs", draw64)
 
 
 def _result(cell, capsys, program=None, seed=2**31 + 3):

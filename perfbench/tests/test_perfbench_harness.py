@@ -6,10 +6,11 @@ import json
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
-from perfbench import imports, spec
+from perfbench import faults, imports, spec
 from perfbench.run import run
 
 from .conftest import ROOT, small_cell
@@ -155,6 +156,59 @@ def test_files_are_found_by_name(tmp_path):
     # the metric without a cell list is reported wherever images_per_s is
     assert "conv_mm.calls_per_step" in [m["name"] for m in
                                         spec.resolve("resnet50-infer-bs512", root).per_layer]
+
+
+MBV2 = "mobilenetv2-224-train-bs256"
+MBV2_READER = '''"""``step.mfu_pct``, reported in the MobileNetV2 cells."""
+
+from pathlib import Path
+
+from perfbench.spec import load_module
+
+_base = load_module(Path(__file__).with_name("step.mfu_pct.py"))
+UNIT, BETTER, MOVES, read = _base.UNIT, _base.BETTER, _base.MOVES, _base.read
+'''
+
+
+def _with_mobilenetv2(tmp_path) -> Path:
+    """A copy of the benchmark that holds a MobileNetV2 cell at 224 x 224,
+    added as new files (the configuration and limits kept in ``tests/``, a
+    per-layer reader of its own) and new entries in BENCHMARK.json; every
+    file that was there is left as it was."""
+    root = tmp_path / "perfbench"
+    shutil.copytree(ROOT / "perfbench", root, ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in root.rglob("*") if p.is_file()}
+    shutil.copy(root / "tests" / "configs" / "mobilenetv2-224-c100.json", root / "configs")
+    shutil.copy(root / "tests" / "limits" / f"{MBV2}.json", root / "limits")
+    (root / "metrics" / "mbnet.step.mfu_pct.py").write_text(MBV2_READER)
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "mobilenetv2-224-c100", "source": "x",
+                             "file": "perfbench/configs/mobilenetv2-224-c100.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": MBV2, "config": "mobilenetv2-224-c100",
+                               "traffic": "train-bs256", "chips": 1, "why": "x"})
+    bench["per_layer"].append({"name": "mbnet.step.mfu_pct", "unit": "%", "better": "higher",
+                               "source": "device_trace", "layer": "step",
+                               "moves": "images_per_s", "workloads": [MBV2]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert all(p.read_bytes() == b for p, b in before.items())
+    return root
+
+
+@pytest.mark.parametrize("fault", ["none"] + sorted(faults.FAULTS))
+def test_a_mobilenetv2_cell_goes_in_from_new_files(tmp_path, fault, float64, capsys):
+    """The cell runs on the CPU at width 0.25, 32 x 32, batch 8, in float64
+    (where a sound run reads rounding alone): unbroken it is correct, with
+    each fault a training cell can have it is not.  (MobileNetV2 halves the
+    input five times: at 16 x 16 and batch 4 its last BatchNorms normalise
+    4 numbers a channel and the steps after the checked ones overflow.)"""
+    cell = small_cell(MBV2, root=_with_mobilenetv2(tmp_path), hw=32, bs=8)
+    assert cell.config["block"] == "inverted_residual"
+    assert [m["name"] for m in cell.per_layer] == ["mbnet.step.mfu_pct"]
+    rc, out, _ = _run(cell, False, capsys, program=faults.FAULTS.get(fault))
+    assert rc == 0
+    line = json.loads(out.strip().splitlines()[-1])
+    assert line["correct"] == (fault == "none"), line["checks"]
 
 
 def test_benchmark_json_matches_the_readers():

@@ -8,7 +8,9 @@ to what the per-layer readers read.
 * ``kernel_s``: device seconds by operation name.
 * ``under(op)``: device seconds of the operations launched inside the
   host operator ``op`` (its outermost calls), through the profiler's
-  link of each device operation to the operator that launched it.
+  link of each device operation to the operator that launched it,
+  without the operations that the profiler hangs on CUPTI's overhead
+  events (``OVERHEAD``), which belong to another operator.
 * ``gaps``: the longest idle intervals between device operations, each
   named by the innermost host operator running at its middle.
 """
@@ -18,7 +20,15 @@ from __future__ import annotations
 from collections import defaultdict
 from dataclasses import dataclass, field
 
-__all__ = ["TraceSummary", "summarize"]
+__all__ = ["OVERHEAD", "TraceSummary", "summarize"]
+
+# CUPTI's overhead activities, which the profiler puts among the host's
+# events.  Such an event can carry the kernels of an unrelated operator
+# (its correlation id is drawn from another sequence than the operators'),
+# so counting them counts those kernels twice.
+OVERHEAD = frozenset({"Driver Compiler", "Buffer Flush", "Instrumentation", "Resource",
+                      "Runtime Triggered Module Loading", "Lazy Function Loading",
+                      "Command Buffer Full", "Activity Buffer Request", "UVM Activity Init"})
 
 
 @dataclass
@@ -51,14 +61,15 @@ def _is_device(e) -> bool:
 
 def _under_ops(cpu_events) -> dict[str, float]:
     """Device seconds under each host operator name, counting an operator
-    only where no ancestor has its name."""
+    only where no ancestor has its name, and nothing under an overhead
+    event."""
     total: dict[int, float] = {}
 
     def dev(e) -> float:
         key = id(e)
         if key not in total:
-            total[key] = sum(k.duration for k in e.kernels) * 1e-6 + \
-                sum(dev(c) for c in e.cpu_children)
+            total[key] = 0.0 if e.name in OVERHEAD else (
+                sum(k.duration for k in e.kernels) * 1e-6 + sum(dev(c) for c in e.cpu_children))
         return total[key]
 
     out: dict[str, float] = defaultdict(float)
