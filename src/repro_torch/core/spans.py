@@ -29,6 +29,10 @@ The spans of the CNN step:
   tile rule, allocation and launch;
 * ``repro.conv_backward``: ``kernels.conv_mm.ops.conv_backward``, on the
   thread that runs autograd's backward;
+* ``repro.dw_conv``: ``kernels.conv_mm.ops.depthwise_conv``, a depthwise
+  convolution's forward;
+* ``repro.dw_conv.backward``: its backward, on autograd's thread, with the
+  ``repro.conv_backward`` of its gradients inside;
 * ``repro.bn``: the BatchNorm forward of ``models.cnn.C``.
 """
 

@@ -17,6 +17,12 @@ from XLA, outside any Pallas kernel.  So the backward of
 :func:`conv_mm` is PyTorch's convolution backward
 (``aten.convolution_backward``, cuDNN on the card) on NCHW/OIHW views of
 the NHWC/HWIO tensors, with TF32 off so that the gradients stay f32.
+
+Depthwise convolutions (groups = C, one input channel a filter) do not go
+through the kernel: :func:`depthwise_conv` runs ``F.conv2d`` with groups =
+C forward and :func:`conv_backward` with groups = C backward, both in f32
+(the reference runs them through XLA, not through a Pallas kernel).
+:func:`depthwise_calls` counts its calls each way.
 """
 
 from __future__ import annotations
@@ -24,13 +30,17 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.spans import span
 
 from .kernel import conv_mm_cuda
 from .ref import conv_ref
 
-__all__ = ["conv_mm", "conv_backward", "fp32_convolutions"]
+__all__ = ["conv_mm", "conv_backward", "depthwise_conv", "depthwise_calls",
+           "fp32_convolutions"]
+
+_dw_calls = {"forward": 0, "backward": 0}
 
 
 @contextlib.contextmanager
@@ -97,3 +107,38 @@ def conv_mm(x, w, *, stride: int = 1, padding: int = 0, block_o=None):
     x's dtype, differentiable in x and w."""
     with span("repro.conv_mm"):
         return _ConvMM.apply(x, w, int(stride), int(padding))
+
+
+def depthwise_calls() -> dict[str, int]:
+    """Calls of :func:`depthwise_conv` so far in this process: ``forward``,
+    and ``backward``, the calls of its backward by autograd."""
+    return dict(_dw_calls)
+
+
+class _DepthwiseConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.padding = stride, padding
+        with fp32_convolutions():
+            y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                         stride=stride, padding=padding, groups=x.shape[-1])
+        return y.permute(0, 2, 3, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, gy):
+        _dw_calls["backward"] += 1
+        x, w = ctx.saved_tensors
+        with span("repro.dw_conv.backward"):
+            dx, dw = conv_backward(gy, x, w, stride=ctx.stride,
+                                   padding=ctx.padding, groups=x.shape[-1],
+                                   needs=ctx.needs_input_grad[:2])
+        return dx, dw, None, None
+
+
+def depthwise_conv(x, w, *, stride: int, padding: int):
+    """x: (N, H, W, C) NHWC; w: (KH, KW, 1, C) HWIO, one input channel a
+    filter → (N, OH, OW, C), in f32 both ways, differentiable in x and w."""
+    _dw_calls["forward"] += 1
+    with span("repro.dw_conv"):
+        return _DepthwiseConv.apply(x, w, int(stride), int(padding))

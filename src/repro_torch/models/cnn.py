@@ -17,8 +17,9 @@ draw, so one seed gives the same parameter dict (numpy arrays);
 
   * a groups = 1 convolution goes through ``kernels.conv_mm.conv_mm``:
     the hand-written CUDA kernel on the card, its plain version on the CPU;
-  * a depthwise convolution runs ``torch.nn.functional.conv2d`` on
-    channels-last views, in f32 (no TF32) forward and backward: the
+  * a depthwise convolution goes through
+    ``kernels.conv_mm.ops.depthwise_conv``: ``torch.nn.functional.conv2d``
+    on channels-last views, in f32 (no TF32) forward and backward, as the
     reference runs it through XLA, not through a Pallas kernel, and
     ``conv_mm`` does not take groups;
   * BatchNorm uses batch statistics with the biased variance and eps 1e-5
@@ -43,7 +44,7 @@ from repro_torch.core.features import ConvLayerSpec, NetworkSpec
 from repro_torch.core.spans import span
 from repro_torch.kernels.batchnorm.ops import batchnorm_act
 from repro_torch.kernels.batchnorm.ref import activation as _act
-from repro_torch.kernels.conv_mm.ops import conv_backward, conv_mm, fp32_convolutions
+from repro_torch.kernels.conv_mm.ops import conv_mm, depthwise_conv
 
 __all__ = [
     "CNNModel",
@@ -77,28 +78,6 @@ class Node:
 
     def apply(self, params, x):
         raise NotImplementedError
-
-
-class _DepthwiseConv(torch.autograd.Function):
-    """Depthwise convolution of NHWC x with HWIO w (C, 1 input each), in
-    f32 both ways; the backward is ``conv_backward`` with groups = C."""
-
-    @staticmethod
-    def forward(ctx, x, w, stride, padding):
-        ctx.save_for_backward(x, w)
-        ctx.stride, ctx.padding = stride, padding
-        with fp32_convolutions():
-            y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                         stride=stride, padding=padding, groups=x.shape[-1])
-        return y.permute(0, 2, 3, 1).contiguous()
-
-    @staticmethod
-    def backward(ctx, gy):
-        x, w = ctx.saved_tensors
-        dx, dw = conv_backward(gy, x, w, stride=ctx.stride,
-                               padding=ctx.padding, groups=x.shape[-1],
-                               needs=ctx.needs_input_grad[:2])
-        return dx, dw, None, None
 
 
 @dataclass(frozen=True)
@@ -157,7 +136,7 @@ class C(Node):
 
     def apply(self, params, x):
         if self.depthwise:
-            y = _DepthwiseConv.apply(x, params["w"], self.stride, self.pad)
+            y = depthwise_conv(x, params["w"], stride=self.stride, padding=self.pad)
         else:
             y = conv_mm(x, params["w"], stride=self.stride, padding=self.pad)
         if self.bias:
